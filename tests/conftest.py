@@ -49,6 +49,10 @@ def pytest_configure(config):
         "markers",
         "slow: exhaustive chaos sweeps excluded from tier-1 (-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (hand-written kernels); skips without one",
+    )
     # place_batch_live donates its lane operands; CPU XLA doesn't implement
     # donation and warns per compile.  Real accelerators honor it silently.
     config.addinivalue_line(
