@@ -20,21 +20,39 @@ Phases:
    dense usage with 40 plan deltas folded in by ``_dense_used0``, against
    the plain version on five lanes of the second batch, under the same
    contract.
-4. server — a ``Server(device="cuda")`` with 32 workers and 64 lanes:
-   register 10,000 nodes, pre-load usage, submit 64 service jobs of count
-   2, wait until every eval is terminal, and check the 128 placements.
-   Every launch count is zeroed just before the jobs go in and read just
-   after: both kernels must have launched, the plain version never.  Then,
-   with the counts zeroed again, one distinct_hosts group of 56 whose plan
-   outgrows 32 deltas: it must take the solo path, launch fused_place and
-   never the plain version.  A last burst of 64 jobs runs under the CUDA
-   profiler and prints the card's busy and idle share and its device time
-   by activity.
-5. timing — each kernel and its plain version at the phase-2 shape, timed
-   with CUDA events (median of 20 launches after warm-up; the plain
-   version's median of 3 runs), beside its bound: the larger of the bytes
-   it must move over the card's memory rate and the float32 operations
-   this batch needs over the card's float32 rate.
+4. system kernel — ``system_feasible`` against its plain version on the
+   same cluster, over ten system-job requests (a static port some nodes
+   hold, datacenter lists, numeric, version, presence and NaN-column
+   constraints, a device ask, an escaped class and a host mask, a dense
+   base usage with deltas of both signs, an ask that exhausts nodes):
+   both rows of the (2, N) result must be equal.
+5. server — a ``Server(device="cuda")`` with 32 workers and 64 lanes:
+   register 10,000 nodes over four datacenters, pre-load usage, submit 64
+   service jobs of count 2, wait until every eval is terminal, and check
+   the 128 placements.  Every launch count is zeroed just before the jobs
+   go in and read just after: both kernels must have launched, the plain
+   version never.  Then, with the counts zeroed again, one distinct_hosts
+   group of 56 whose plan outgrows 32 deltas: it must take the solo path,
+   launch fused_place and never the plain version.  A burst of 64 jobs
+   runs under the CUDA profiler and prints the card's busy and idle share
+   and its device time by activity.  Last, with the counts zeroed again,
+   the system path: two system jobs (``node-exporter`` everywhere with
+   static port 9100, ``log-shipper`` in dc1 off class-3) must hold one
+   alloc on exactly the nodes their specs call for; 32 nodes join and get
+   theirs; the smoke plays the client (pending allocs report running);
+   16 nodes holding service allocs drain (service allocs re-place through
+   fused_place, system allocs stop, each drain completes) and 16 others
+   go down (their allocs are lost and the service ones replaced).
+   ``system_feasible`` must have launched once per system eval and its
+   plain version never.
+6. timing — each kernel and its plain version at the phase-2 shape (for
+   ``system_feasible``, the node-exporter request at N=10240), timed with
+   CUDA events (median of 20 launches after warm-up; fused_place's and
+   allocs_fit_verify's plain versions the median of 3 runs), beside its
+   bound: the larger of the bytes it must move over the card's memory
+   rate and the float32 operations it needs over the card's float32
+   rate.  ``system_feasible`` also gets its device time from the
+   profiler and the time of one whole system dispatch.
 
 Prints the kernel table as one JSON line before the last, and ends with
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -68,6 +86,12 @@ SOLO_DELTAS = 40  # plan deltas of the solo case: more than MAX_DELTA_ROWS
 # distinct_hosts, targeted spread, rack spread.
 SOLO_LANES = (0, 1, 2, 3, 6)
 SOLO_COUNT = 56  # distinct_hosts group whose fourth chunk goes solo
+DATACENTERS = ["dc1", "dc2", "dc3", "dc4"]
+SYSTEM_PORT = 9100
+SYSTEM_NEW_NODES = 32
+SYSTEM_DRAINS = 16
+SYSTEM_DOWNS = 16
+LIFECYCLE_TIMEOUT_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -143,6 +167,12 @@ def build_cluster(n_nodes: int, capacity: int, device, seed: int = 42):
         host["prio_used"][:n_nodes, b] = np.round(usage * shares[:, j:j + 1])
     # A few occupied static ports.
     host["port_words"][: n_nodes: 7, 8080 >> 5] |= np.uint32(1 << (8080 & 31))
+    host["port_words"][3: n_nodes: 13, SYSTEM_PORT >> 5] |= np.uint32(
+        1 << (SYSTEM_PORT & 31))
+    # Two GPUs on every fifth node, one of them in use on every tenth.
+    gpu = m.devices.register("gpu")
+    host["dev_total"][: n_nodes: 5, gpu] = 2
+    host["dev_used"][: n_nodes: 10, gpu] = 1
     m._dirty.update(range(n_nodes))
     m.version += 1
     return m
@@ -464,6 +494,44 @@ def verify_work(batch: Batch, packed, n_placements: int):
     return nbytes, ops
 
 
+def system_feasible_work(arrays, req, n_classes: int):
+    """(bytes, float32 ops) the system_feasible function needs for one
+    request.  Every row needs its eligible bit, host-mask byte, totals,
+    base usage and two output bytes; only an eligible row needs the rest
+    of the feasibility columns the request refers to (class id, the
+    attribute columns of its datacenter list and constraints, the asked
+    device slots, ``dyn_used`` and the port words of its static ports).
+    Operations: the fit's three adds and three compares on every row, and
+    three float compares per numeric or version constraint on each
+    eligible row; integer work has no rate in the card's table."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    n = int(arrays.used.shape[0])
+    n_elig = int(arrays.eligible.sum())
+    hash_slots, num_slots, ver_slots = set(), set(), set()
+    if int(req.dc_hash[0]) != -1:
+        hash_slots.add(0)
+    n_numeric = 0
+    for slot, op in zip(req.c_slot, req.c_op):
+        if slot < 0:
+            continue
+        hash_slots.add(int(slot))
+        if 2 <= op <= 5:
+            num_slots.add(int(slot))
+        elif op >= 8:
+            ver_slots.add(int(slot))
+        n_numeric += _is_numeric(int(op))
+    words = {int(p) >> 5 for p in req.p_static if p >= 0}
+    per_row = 1 + 1 + 12 + 12 + 2
+    per_elig = (4 + 4 * (len(hash_slots) + len(num_slots) + len(ver_slots))
+                + 8 * int((np.asarray(req.dev_ask) > 0).sum())
+                + 4 + 4 * len(words))
+    req_bytes = (k.REQ_INT_WIDTH + k.REQ_FLOAT_WIDTH) * 4
+    nbytes = n * per_row + n_elig * per_elig + n_classes + req_bytes
+    ops = 6 * n + 3 * n_numeric * n_elig
+    return nbytes, ops
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -636,23 +704,153 @@ def phase_solo(batch: Batch, results: dict) -> None:
     r["max_abs_err"] = max(r["max_abs_err"], err_max)
 
 
+def system_jobs():
+    """The two system jobs of the server phase."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.types import Constraint, NetworkResource
+
+    exporter = mock.system_job()
+    exporter.id = exporter.name = "node-exporter"
+    exporter.datacenters = list(DATACENTERS)
+    exporter.task_groups[0].tasks[0].resources.networks = [
+        NetworkResource(reserved_ports=[SYSTEM_PORT])]
+    shipper = mock.system_job()
+    shipper.id = shipper.name = "log-shipper"
+    shipper.datacenters = ["dc1"]
+    shipper.task_groups[0].constraints = [Constraint(
+        l_target="${node.class}", operand="!=", r_target="class-3")]
+    return exporter, shipper
+
+
+def system_cases(m, arrays):
+    """(label, request, class_elig, host_mask, plan deltas) for the kernel
+    phase: the shapes a system eval can hand ``system_feasible``."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.encode import RequestEncoder, pow2_bucket
+    from nomad_tpu_torch.structs.types import Constraint, RequestedDevice
+
+    rng = np.random.default_rng(17)
+    enc = RequestEncoder(m)
+    n = int(arrays.used.shape[0])
+    k_cls = pow2_bucket(max(1, len(m.class_ids)))
+    exporter, shipper = system_jobs()
+
+    def variant(**kw):
+        job = mock.system_job()
+        job.datacenters = list(DATACENTERS)
+        tg = job.task_groups[0]
+        for key, val in kw.items():
+            if key in ("cpu", "memory_mb"):
+                setattr(tg.tasks[0].resources, key, val)
+            elif key == "devices":
+                tg.tasks[0].resources.devices = val
+            elif key == "datacenters":
+                job.datacenters = val
+            else:
+                setattr(tg, key, val)
+        return job
+
+    c = Constraint
+    jobs = [
+        ("node-exporter", exporter),
+        ("log-shipper", shipper),
+        ("datacenters", variant(datacenters=["dc2", "dc3"])),
+        ("numeric-version", variant(constraints=[
+            c(l_target="${attr.os.version}", operand=">=", r_target="20"),
+            c(l_target="${attr.os.version}", operand="version",
+              r_target=">= 22.0"),
+            c(l_target="${attr.rack}", operand="!=", r_target="r3")])),
+        ("presence", variant(constraints=[
+            c(l_target="${attr.platform.tpu.type}", operand="is_set"),
+            c(l_target="${attr.gpu.model}", operand="is_not_set"),
+            c(l_target="${attr.platform.tpu.type}", operand="=",
+              r_target="v5e")])),
+        # rack values ("r7") parse to NaN: every ordered compare fails.
+        ("nan-column", variant(constraints=[
+            c(l_target="${attr.rack}", operand="<", r_target="100")])),
+        ("device", variant(devices=[RequestedDevice(name="gpu", count=2)])),
+        ("escaped-class-host-mask", variant()),
+        ("signed-deltas", variant(cpu=900, memory_mb=1024)),
+        ("exhausting", variant(cpu=3000, memory_mb=4000)),
+    ]
+    out = []
+    for label, job in jobs:
+        req = enc.compile(job, job.task_groups[0]).request
+        class_elig = np.ones((k_cls,), bool)
+        host_mask = np.ones((n,), bool)
+        deltas = {}
+        if label == "escaped-class-host-mask":
+            # Four entries for more class ids than that: the ids past the
+            # end read the last entry.
+            class_elig = np.array([True, False, True, True])
+            host_mask[::17] = False
+        if label == "signed-deltas":
+            rows = rng.choice(N_NODES, N_NODES // 8, replace=False)
+            half = len(rows) // 2
+            for r in rows[:half]:  # this job's own allocs, subtracted
+                deltas[int(r)] = -np.array([900, 1024, 0], np.float32)
+            for r in rows[half:]:  # other placements in the plan
+                deltas[int(r)] = rng.integers(100, 3000, 3).astype(np.float32)
+        out.append((label, req, class_elig, host_mask, deltas))
+    return out
+
+
+def phase_system_kernel(m, results: dict) -> None:
+    """system_feasible against its plain version at N=10240 on every
+    request of ``system_cases``: both rows exactly equal, every output
+    byte 0 or 1."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.stack import _dense_used0
+
+    arrays = m.sync("cuda")
+    dev = arrays.used.device
+    err = 0.0
+    for label, req, class_elig, host_mask, deltas in system_cases(m, arrays):
+        used0 = _dense_used0(arrays, deltas)
+        ri, rf = k.pack_request(req, dev)
+        ce = torch.from_numpy(class_elig).to(dev)
+        hm = torch.from_numpy(host_mask).to(dev)
+        got = k.system_feasible(arrays, used0, ri, rf, ce, hm)
+        want = k.system_feasible_plain(arrays, used0, ri, rf, ce, hm)
+        _sync()
+        raw = got.view(torch.uint8).cpu()
+        got, want = got.cpu(), want.cpu()
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        err = max(err, float(diff.max()))
+        mask, fits = want[0], want[1]
+        log(f"kernels[system {label}] system_feasible vs plain: "
+            f"{int((diff != 0).sum())} entries differ; feasible "
+            f"{int(mask.sum())}, fit {int(fits.sum())}, exhausted "
+            f"{int((mask & ~fits).sum())} of {mask.shape[0]} rows, "
+            f"{len(deltas)} deltas")
+        if int(raw.max()) > 1:
+            raise AssertionError(f"system {label}: an output byte is not 0/1")
+        if not torch.equal(got, want):
+            raise AssertionError(f"system_feasible disagrees on {label}")
+    results["system_feasible"] = {"max_abs_err": err, "matches_plain": True}
+
+
 def phase_server(card: str, results: dict) -> None:
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import kernels as k
     from nomad_tpu_torch.server.server import Server, ServerConfig
 
     rng = np.random.default_rng(7)
+    # Long heartbeat TTLs: the smoke plays no client heartbeats, and marks
+    # nodes down itself through the RPC that heartbeat expiry calls.
     cfg = ServerConfig(num_workers=SERVER_WORKERS, coalescer_lanes=LANES,
-                       node_capacity=CAPACITY)
+                       node_capacity=CAPACITY, heartbeat_min_ttl=3600.0,
+                       heartbeat_max_ttl=7200.0)
     srv = Server(cfg, device="cuda")
     srv.start()
     try:
         t0 = time.perf_counter()
+        specs = {}
         for i in range(N_NODES):
-            node = mock.node()
-            node.node_class = f"class-{i % 6}"
-            node.attributes = dict(node.attributes)
-            node.attributes["rack"] = f"r{i % 32}"
+            node = server_node(i)
+            specs[node.id] = (node.datacenter, node.node_class)
             srv.register_node(node)
         with srv.matrix._host_lock:
             host = srv.matrix.snapshot_host()
@@ -666,6 +864,7 @@ def phase_server(card: str, results: dict) -> None:
 
         def make_job(i: int):
             job = mock.job()
+            job.datacenters = list(DATACENTERS)
             tg = job.task_groups[0]
             tg.count = SERVER_COUNT
             tg.tasks[0].resources.cpu = 50 + 25 * (i % 4)
@@ -717,8 +916,284 @@ def phase_server(card: str, results: dict) -> None:
         }
         solo_run(srv, make_job, results)
         trace_burst(srv, [make_job(i) for i in range(SERVER_JOBS)], card)
+        system_run(srv, specs, card, results)
     finally:
         srv.shutdown()
+
+
+def server_node(i: int):
+    """The server phase's i-th node: four datacenters, six classes."""
+    from nomad_tpu_torch import mock
+
+    node = mock.node()
+    node.datacenter = DATACENTERS[i % len(DATACENTERS)]
+    node.node_class = f"class-{i % 6}"
+    node.attributes = dict(node.attributes)
+    node.attributes["rack"] = f"r{i % 32}"
+    return node
+
+
+def live_allocs(srv, job_id=None, node_id=None):
+    allocs = (srv.store.allocs_by_node(node_id) if node_id is not None
+              else list(srv.store.allocs.values()))
+    return [a for a in allocs if not a.terminal_status()
+            and (job_id is None or a.job_id == job_id)]
+
+
+def play_client(srv) -> int:
+    """Report every pending alloc the scheduler wants running as running
+    (what each node's client would do); returns how many."""
+    updates = []
+    for a in list(srv.store.allocs.values()):
+        if a.client_status == "pending" and a.desired_status == "run":
+            upd = a.copy()
+            upd.client_status = "running"
+            updates.append(upd)
+    if updates:
+        srv.update_allocs_from_client(updates)
+    return len(updates)
+
+
+def wait_quiet(srv, what: str, timeout_s: float = LIFECYCLE_TIMEOUT_S) -> float:
+    """Wait until no eval is queued or in flight and every eval in the
+    store is terminal or blocked, three polls in a row; returns seconds."""
+    t0 = time.perf_counter()
+    broker = srv.eval_broker
+    quiet = 0
+    while quiet < 3:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{what}: evals still open after {timeout_s:.0f} s")
+        busy = (broker.ready_count() + broker.unacked_count()
+                + broker.pending_count() + broker.delayed_count())
+        open_evals = any(not e.terminal_status() and e.status != "blocked"
+                         for e in list(srv.store.evals.values()))
+        quiet = quiet + 1 if not busy and not open_evals else 0
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def expect_system(srv, job, want_nodes, label: str) -> None:
+    """``job`` holds exactly one live alloc on each node of ``want_nodes``
+    and on no other node."""
+    allocs = live_allocs(srv, job.id)
+    nodes = [a.node_id for a in allocs]
+    if len(nodes) != len(set(nodes)):
+        raise AssertionError(f"{label}: {job.id} has two allocs on a node")
+    if set(nodes) != set(want_nodes):
+        raise AssertionError(
+            f"{label}: {job.id} on {len(set(nodes))} nodes, expected "
+            f"{len(want_nodes)} ({len(set(nodes) - set(want_nodes))} extra, "
+            f"{len(set(want_nodes) - set(nodes))} missing)")
+
+
+def check_capacity(srv, label: str) -> None:
+    host = srv.matrix.snapshot_host()
+    over = np.flatnonzero(np.any(host["used"] > host["totals"], axis=1))
+    if len(over):
+        raise AssertionError(f"{label}: {len(over)} node rows over capacity")
+
+
+def system_run(srv, specs: dict, card: str, results: dict) -> None:
+    """The system path on the server phase's 10,000 nodes: two system jobs,
+    then 32 joining nodes, 16 drains and 16 nodes down, with every count
+    checked exactly.  Launch counts are zeroed just before and read just
+    after."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.system import MAX_SYSTEM_SCHEDULE_ATTEMPTS
+    from nomad_tpu_torch.structs.types import DrainStrategy
+
+    exporter, shipper = system_jobs()
+    matches = {
+        exporter.id: lambda dc, cls: True,
+        shipper.id: lambda dc, cls: dc == "dc1" and cls != "class-3",
+    }
+    placed = {}  # job id -> the nodes that got an alloc at submit
+
+    def wanted(job, gone=()):
+        """The nodes ``job`` must hold: those that took it at submit and
+        the joined nodes its spec matches (they join empty), less the
+        gone ones."""
+        joined = {nid for nid, spec in specs.items()
+                  if nid in new_nodes and matches[job.id](*spec)}
+        return (placed[job.id] | joined) - set(gone)
+
+    evals_before = set(srv.store.evals)
+    service_jobs = {a.job_id for a in live_allocs(srv)}
+    service_count = {j: len(live_allocs(srv, j)) for j in service_jobs}
+    parked = [e for e in srv.store.evals.values() if e.status == "blocked"]
+    if parked:
+        raise AssertionError(f"{len(parked)} blocked evals before the system "
+                             "phase: its service counts would move")
+    new_nodes: set = set()
+    sched = srv.metrics.timer("nomad.worker.invoke_scheduler")
+    sched0 = (sched.count, sched.sum)
+    k.reset_counts()
+    t_phase = time.perf_counter()
+
+    # 1. Two system jobs on 10,000 nodes, one after the other.  The nodes
+    # a job must land on follow from the specs registered and the room
+    # each node has for its ask; a node without room is exhausted, which
+    # the eval must report and park a blocked eval for.
+    results["system_server"] = {}
+    for job in (exporter, shipper):
+        r = job.task_groups[0].combined_resources()
+        ask = np.array([r.cpu, r.memory_mb, r.disk_mb], np.float32)
+        with srv.matrix._host_lock:
+            host = srv.matrix.snapshot_host()
+            room_rows = np.all(host["used"] + ask <= host["totals"], axis=1)
+        match = {nid for nid, spec in specs.items() if matches[job.id](*spec)}
+        room = {nid for nid in match if room_rows[srv.matrix.row_of[nid]]}
+        t0 = time.perf_counter()
+        ev = srv.submit_job(job)
+        while not srv.store.eval_by_id(ev.id).terminal_status():
+            if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+                raise AssertionError(f"{job.id}: eval not terminal in time")
+            time.sleep(0.005)
+        secs = time.perf_counter() - t0
+        cur = srv.store.eval_by_id(ev.id)
+        exhausted = sum(m.nodes_exhausted for m in cur.failed_tg_allocs.values())
+        log(f"system: {job.id} eval {cur.status} in {secs:.3f} s (submit -> "
+            f"complete), {len(live_allocs(srv, job.id))} allocs on "
+            f"{len(match)} matching nodes, {exhausted} exhausted (predicted "
+            f"{len(match) - len(room)}), blocked eval "
+            f"{bool(cur.blocked_eval)} (card: {card})")
+        if cur.status != "complete" or exhausted != len(match) - len(room):
+            raise AssertionError(f"{job.id}: eval {cur.status}, "
+                                 f"{exhausted} nodes exhausted")
+        if bool(cur.blocked_eval) != (exhausted > 0):
+            raise AssertionError(f"{job.id}: blocked eval {cur.blocked_eval!r}")
+        placed[job.id] = room
+        expect_system(srv, job, wanted(job), "submit")
+        results["system_server"][f"{job.id}_eval_s"] = secs
+    check_capacity(srv, "submit")
+
+    # 2. 32 nodes join: each gets the system allocs its spec calls for.
+    t0 = time.perf_counter()
+    for i in range(N_NODES, N_NODES + SYSTEM_NEW_NODES):
+        node = server_node(i)
+        specs[node.id] = (node.datacenter, node.node_class)
+        new_nodes.add(node.id)
+        srv.register_node(node)
+    secs = wait_quiet(srv, "node joins")
+    joins = [e for e in srv.store.evals.values()
+             if e.id not in evals_before and e.triggered_by == "node-update"]
+    log(f"system: {SYSTEM_NEW_NODES} nodes joined, {len(joins)} node-update "
+        f"evals done in {time.perf_counter() - t0:.3f} s "
+        f"({secs:.3f} s after the last registration)")
+    expect_system(srv, exporter, wanted(exporter), "joins")
+    expect_system(srv, shipper, wanted(shipper), "joins")
+    reported = play_client(srv)
+    log(f"system: the client reported {reported} allocs running")
+
+    # 3. Drain 16 nodes that hold service allocs.
+    old_nodes = sorted(nid for nid in specs
+                       if any(a.job_id in service_jobs
+                              for a in live_allocs(srv, node_id=nid)))
+    drained = old_nodes[:SYSTEM_DRAINS]
+    down = old_nodes[SYSTEM_DRAINS:SYSTEM_DRAINS + SYSTEM_DOWNS]
+    if len(down) != SYSTEM_DOWNS:
+        raise AssertionError(f"only {len(old_nodes)} nodes hold service allocs")
+    moved = [a.id for nid in drained for a in live_allocs(srv, node_id=nid)
+             if a.job_id in service_jobs]
+    t0 = time.perf_counter()
+    for nid in drained:
+        srv.update_node_drain(nid, DrainStrategy())
+    while any(srv.store.node_by_id(nid).drain for nid in drained):
+        if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+            raise AssertionError("drains did not complete in time")
+        play_client(srv)
+        time.sleep(0.05)
+    wait_quiet(srv, "drains")
+    play_client(srv)
+    log(f"system: {SYSTEM_DRAINS} drains complete in "
+        f"{time.perf_counter() - t0:.3f} s, {len(moved)} service allocs "
+        f"migrated")
+    for nid in drained:
+        node = srv.store.node_by_id(nid)
+        if node.drain or node.scheduling_eligibility != "ineligible":
+            raise AssertionError(f"drained node {nid}: drain {node.drain}, "
+                                 f"{node.scheduling_eligibility}")
+        if live_allocs(srv, node_id=nid):
+            raise AssertionError(f"drained node {nid} still holds allocs")
+    if not all(srv.store.alloc_by_id(a).desired_status == "stop" for a in moved):
+        raise AssertionError("a drained service alloc was not stopped")
+
+    # 4. 16 other nodes go down (the RPC a missed heartbeat calls).
+    lost = [a.id for nid in down for a in live_allocs(srv, node_id=nid)]
+    t0 = time.perf_counter()
+    for nid in down:
+        srv.update_node_status(nid, "down")
+    wait_quiet(srv, "nodes down")
+    play_client(srv)
+    log(f"system: {SYSTEM_DOWNS} nodes down, {len(lost)} allocs lost and "
+        f"handled in {time.perf_counter() - t0:.3f} s")
+    not_lost = [srv.store.alloc_by_id(a) for a in lost
+                if srv.store.alloc_by_id(a).client_status != "lost"]
+    if not_lost:
+        raise AssertionError(
+            f"{len(not_lost)} allocs on down nodes not lost: " + "; ".join(
+                f"{a.name} ({a.job.type if a.job else '?'}) desired "
+                f"{a.desired_status} ({a.desired_description}) client "
+                f"{a.client_status}, migrate "
+                f"{a.desired_transition.should_migrate()}"
+                for a in not_lost[:4]))
+
+    # Final state: every count exact.
+    gone = set(drained) | set(down)
+    expect_system(srv, exporter, wanted(exporter, gone), "final")
+    expect_system(srv, shipper, wanted(shipper, gone), "final")
+    for job_id, count in service_count.items():
+        allocs = live_allocs(srv, job_id)
+        if len(allocs) != count or {a.node_id for a in allocs} & gone:
+            evals = sorted(
+                (e.create_index, e.triggered_by, e.status, e.status_description)
+                for e in srv.store.evals.values()
+                if e.job_id == job_id and e.id not in evals_before)
+            raise AssertionError(f"service job {job_id}: {len(allocs)} live "
+                                 f"allocs, expected {count} off the gone "
+                                 f"nodes; its evals {evals}")
+    check_capacity(srv, "final")
+
+    sys_evals = [e for e in srv.store.evals.values()
+                 if e.id not in evals_before and e.type == "system"]
+    statuses = sorted({e.status for e in sys_evals})
+    # Evals that ran the scheduler end complete; the blocked evals that
+    # exhausted nodes park stay blocked, or are cancelled when a newer one
+    # of the same job replaces them.  An eval whose plan only partly
+    # commits runs the scheduler (and the kernel) again, up to five times.
+    ran = [e for e in sys_evals if e.status == "complete"]
+    parked = [e for e in sys_evals if e.status != "complete"]
+    launches = {
+        "system_feasible": k.system_feasible.launches,
+        "system_feasible_plain": k.system_feasible_plain.calls,
+        "fused_place": k.fused_place.launches,
+        "plain": k.place_lanes.calls + k.verify_lanes.calls,
+    }
+    log(f"system: {len(sys_evals)} system evals {statuses} ({len(ran)} ran "
+        f"the scheduler, {launches['system_feasible'] - len(ran)} extra "
+        f"attempts after partial commits) in "
+        f"{time.perf_counter() - t_phase:.3f} s; launches {launches}")
+    if any(e.status not in ("blocked", "cancelled")
+           or e.triggered_by != "queued-allocs" for e in parked):
+        raise AssertionError(f"system eval statuses {statuses}")
+    if not (len(ran) <= launches["system_feasible"]
+            <= MAX_SYSTEM_SCHEDULE_ATTEMPTS * len(ran)):
+        raise AssertionError(
+            f"system_feasible launched {launches['system_feasible']} times "
+            f"for {len(ran)} system evals of one task group each")
+    if launches["system_feasible_plain"] or launches["plain"]:
+        raise AssertionError(f"plain version ran on the card: {launches}")
+    if launches["fused_place"] <= 0:
+        raise AssertionError("no service replacement went through fused_place")
+    results["system_feasible"]["launches"] = launches["system_feasible"]
+    results["system_server"].update(
+        system_evals=len(ran), fused_place=launches["fused_place"],
+        seconds=time.perf_counter() - t_phase)
+    n_sched = sched.count - sched0[0]
+    mean_ms = (sched.sum - sched0[1]) / max(1, n_sched) * 1e3
+    results["system_server"]["scheduler_ms_mean"] = mean_ms
+    log(f"system: {n_sched} scheduler invocations (system and service) in "
+        f"this phase, {mean_ms:.3f} ms each on average (card: {card})")
 
 
 def solo_run(srv, make_job, results: dict) -> None:
@@ -851,6 +1326,80 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
             f"card: {card})")
 
 
+def device_us_per_launch(fn, name: str, runs: int = 20) -> float:
+    """Device time of kernel ``name`` per launch over ``runs`` calls of
+    ``fn``, from the CUDA profiler; 0.0 when it recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if name in e.key and e.count:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            return us / e.count
+    return 0.0
+
+
+def phase_system_timing(m, card: str, results: dict) -> None:
+    """system_feasible alone on the node-exporter request at N=10240
+    (CUDA events and the profiler), its plain version, its bound, and one
+    whole dispatch of a node-update eval: ``_dense_used0`` over one plan
+    delta per node, the kernel, and the (2, N) copy back."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.stack import _dense_used0
+
+    arrays = m.sync("cuda")
+    dev = arrays.used.device
+    _, req, class_elig, host_mask, _ = next(
+        c for c in system_cases(m, arrays) if c[0] == "node-exporter")
+    used0 = arrays.used.clone()
+    ri, rf = k.pack_request(req, dev)
+    ce = torch.from_numpy(class_elig).to(dev)
+    hm = torch.from_numpy(host_mask).to(dev)
+
+    def run():
+        k.system_feasible(arrays, used0, ri, rf, ce, hm)
+
+    def run_plain():
+        k.system_feasible_plain(arrays, used0, ri, rf, ce, hm)
+
+    ms = time_cuda(run, runs=20)
+    dev_us = device_us_per_launch(run, "system_feasible_kernel")
+    plain_ms = time_cuda(run_plain, runs=20)
+    work = system_feasible_work(arrays, req, len(class_elig))
+    b_ms, by = bound(*work)
+    own = {r: -np.array([100.0, 64.0, 0.0], np.float32) for r in range(N_NODES)}
+
+    def dispatch():
+        return k.system_feasible(arrays, _dense_used0(arrays, own), ri, rf,
+                                 ce, hm).cpu()
+
+    for _ in range(3):
+        dispatch()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        dispatch()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dispatch_ms = statistics.median(times)
+    results["system_feasible"].update(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
+    results["system_server"]["dispatch_ms"] = dispatch_ms
+    log(f"timing system_feasible: {ms:.4f} ms by CUDA events, "
+        f"{dev_us:.3f} us a launch on the device (profiler); plain version "
+        f"{plain_ms:.3f} ms; bound {b_ms:.6f} ms by {by}; {work[0]} bytes, "
+        f"{work[1]:.4g} ops; one node-update dispatch ({len(own)} deltas, "
+        f"kernel, copy back) {dispatch_ms:.3f} ms on the host clock "
+        f"(card: {card})")
+
+
 def main() -> int:
     import torch
 
@@ -880,14 +1429,18 @@ def main() -> int:
         f"{tuple(batches[0].features)} / {tuple(batches[1].features)}")
     phase_kernels(batches, results)
     phase_solo(batches[1], results)
+    phase_system_kernel(m, results)
     phase_server(card, results)
     phase_timing(batches[0], card, results)
+    phase_system_timing(m, card, results)
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",
                         "nomad_tpu/ops/kernels.py:968"),
         "allocs_fit_verify": ("nomad_tpu_torch/ops/csrc/allocs_fit_verify.cu",
                               "nomad_tpu/ops/kernels.py:1026"),
+        "system_feasible": ("nomad_tpu_torch/ops/csrc/system_feasible.cu",
+                            "nomad_tpu/ops/kernels.py:289"),
     }
     table = []
     for name, (src, replaces) in sources.items():

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("fused_place", "allocs_fit_verify")
+KERNELS = ("fused_place", "allocs_fit_verify", "system_feasible")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -108,10 +108,12 @@ _INT = ctypes.c_int
 _ARGTYPES = {
     "nomad_fused_place": [_PTR] * 24 + [_INT] * 12 + [_PTR],
     "nomad_allocs_fit_verify": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    "nomad_system_feasible": [_PTR] * 16 + [_INT] * 4 + [_PTR],
 }
 _ENTRY = {
     "fused_place": "nomad_fused_place",
     "allocs_fit_verify": "nomad_allocs_fit_verify",
+    "system_feasible": "nomad_system_feasible",
 }
 
 

@@ -42,6 +42,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "feasibility.cuh"
 #include "layout.cuh"
 
 #define THREADS 512
@@ -54,35 +55,12 @@
 #define PREEMPTION_RATE_F 0.0048f
 #define PREEMPTION_ORIGIN_F 2048.0f
 
-// Op codes (ops/encode.py).
-#define OP_EQ 0
-#define OP_NEQ 1
-#define OP_LT 2
-#define OP_LTE 3
-#define OP_GT 4
-#define OP_GTE 5
-#define OP_IS_SET 6
-#define OP_IS_NOT_SET 7
-#define OP_VER_EQ 8
-#define OP_VER_LT 9
-#define OP_VER_LTE 10
-#define OP_VER_GT 11
-#define OP_VER_GTE 12
-
 struct FusedParams {
   // matrix (N rows)
+  NodeTables m;              // the columns feasibility reads
   const float* totals;       // (N, 3)
   const float* used;         // (N, 3)
-  const uint8_t* eligible;   // (N,)
-  const int32_t* attr_hash;  // (N, A)
-  const float* attr_num;     // (N, A)
-  const float* attr_ver;     // (N, A)
-  const int32_t* class_id;   // (N,)
-  const int32_t* dev_total;  // (N, DEV_SLOTS)
-  const int32_t* dev_used;   // (N, DEV_SLOTS)
   const float* prio_used;    // (N, PRIO_BUCKETS, 3)
-  const int32_t* port_words; // (N, W) int32 view of the u32 bitmap
-  const int32_t* dyn_used;   // (N,)
   // lanes
   const int32_t* delta_rows;   // (B, D)
   const float* delta_vals;     // (B, D, 3)
@@ -96,35 +74,9 @@ struct FusedParams {
   const uint8_t* lane_mask;    // (B,)
   float* out;                  // (B, P, PACKED_WIDTH)
   float* scratch;              // (B, N, 3) per-lane usage
-  int n, a, w, b, d, k, p;
+  int n, b, d, k, p;
   int c_width, a_width, s_width, preempt, ports;
 };
-
-// One predicate against one node (kernels.py:_check_predicate).
-__device__ __forceinline__ bool check_predicate(const FusedParams& P, int row,
-                                                int slot, int op, int want_hash,
-                                                float want_num) {
-  if (slot < 0) return true;
-  if (slot >= P.a) slot = P.a - 1;  // gathers clamp, as in JAX
-  const int h = P.attr_hash[(size_t)row * P.a + slot];
-  const bool is_ver = op >= OP_VER_EQ;
-  const float v = is_ver ? P.attr_ver[(size_t)row * P.a + slot]
-                         : P.attr_num[(size_t)row * P.a + slot];
-  const bool present = h != 0;
-  const bool is_num = (op >= OP_LT && op <= OP_GTE) || is_ver;
-  const bool is_pres = op == OP_IS_SET || op == OP_IS_NOT_SET;
-  const bool negate = op == OP_NEQ || op == OP_IS_NOT_SET;
-  const bool want_lt = op == OP_LT || op == OP_LTE || op == OP_VER_LT ||
-                       op == OP_VER_LTE;
-  const bool want_gt = op == OP_GT || op == OP_GTE || op == OP_VER_GT ||
-                       op == OP_VER_GTE;
-  const bool want_eq = op == OP_LTE || op == OP_GTE || op == OP_VER_EQ ||
-                       op == OP_VER_LTE || op == OP_VER_GTE;
-  const bool cmp = (want_lt && v < want_num) || (want_gt && v > want_num) ||
-                   (want_eq && v == want_num);
-  const bool inner = is_num ? cmp : (is_pres || h == want_hash);
-  return (present && inner) != negate;
-}
 
 struct Best {
   float val;
@@ -194,7 +146,6 @@ fused_place_kernel(FusedParams P) {
   const bool distinct = ri[RI_DISTINCT_HOSTS] != 0;
   const int pbucket = ri[RI_PREEMPT_BUCKET];
   const int kb = pbucket < 0 ? 0 : (pbucket > PRIO_BUCKETS ? PRIO_BUCKETS : pbucket);
-  const bool dc_skip = ri[RI_DC_HASH] == -1;
   const int* tg_lane = P.tg_counts + (size_t)lane * N;
   const uint8_t* pen_lane = P.penalties + (size_t)lane * N;
   const uint8_t* hm_lane = P.host_masks + (size_t)lane * N;
@@ -235,47 +186,10 @@ fused_place_kernel(FusedParams P) {
     const int np_ = n_placed;
 
     for (int i = tid; i < N; i += THREADS) {
-      // ---- feasibility (feasibility_mask, kernels.py:265)
-      const bool elig = P.eligible[i] != 0;
-      bool feas = elig;
-      if (feas && !dc_skip) {
-        const int dc = P.attr_hash[(size_t)i * P.a];
-        bool member = false;
-        for (int j = 0; j < MAX_DC; ++j) {
-          const int want = ri[RI_DC_HASH + j];
-          member |= (dc == want) && (want > 0);
-        }
-        feas = member;
-      }
-      for (int c = 0; feas && c < P.c_width; ++c)
-        feas = check_predicate(P, i, ri[RI_C_SLOT + c], ri[RI_C_OP + c],
-                               ri[RI_C_HASH + c], rf[RF_C_NUM + c]);
-      for (int j = 0; feas && j < DEV_SLOTS; ++j) {
-        const int want = ri[RI_DEV_ASK + j];
-        const int free_ = P.dev_total[(size_t)i * DEV_SLOTS + j] -
-                          P.dev_used[(size_t)i * DEV_SLOTS + j];
-        feas = (free_ >= want) || (want == 0);
-      }
-      if (feas && P.ports) {
-        for (int j = 0; feas && j < MAX_PORTS; ++j) {
-          const int port = ri[RI_P_STATIC + j];
-          if (port < 0) continue;
-          const unsigned word =
-              (unsigned)P.port_words[(size_t)i * P.w + (port >> 5)];
-          feas = ((word >> (port & 31)) & 1u) == 0u;
-        }
-        feas = feas && (P.dyn_used[i] + ri[RI_P_DYN] <= DYN_PORT_CAPACITY);
-      }
-      if (feas) {
-        int cid = P.class_id[i];
-        if (cid < 0) {
-          feas = false;
-        } else {
-          if (cid >= P.k) cid = P.k - 1;
-          feas = ce_lane[cid] != 0;
-        }
-      }
-      feas = feas && hm_lane[i] != 0;
+      // ---- feasibility (feasibility_mask, kernels.py:265; feasibility.cuh)
+      bool elig;
+      bool feas = node_feasible(P.m, i, ri, rf, P.c_width, P.ports != 0,
+                                ce_lane, P.k, hm_lane, elig);
       int tg = tg_lane[i];
       for (int j = 0; j < np_; ++j) tg += placed[j] == i;
       feas = feas && !(distinct && tg > 0);
@@ -334,7 +248,7 @@ fused_place_kernel(FusedParams P) {
       for (int j = 0; j < P.a_width; ++j) {
         const int slot = ri[RI_A_SLOT + j];
         const bool m = slot >= 0 &&
-            check_predicate(P, i, slot, ri[RI_A_OP + j], ri[RI_A_HASH + j],
+            check_predicate(P.m, i, slot, ri[RI_A_OP + j], ri[RI_A_HASH + j],
                             rf[RF_A_NUM + j]);
         aff_total = aff_total + (m ? 1.0f : 0.0f) * rf[RF_A_WEIGHT + j];
       }
@@ -346,8 +260,8 @@ fused_place_kernel(FusedParams P) {
       for (int s = 0; s < P.s_width; ++s) {
         int slot = ri[RI_S_SLOT + s];
         if (slot < 0) continue;
-        if (slot >= P.a) slot = P.a - 1;
-        const int nvalue = P.attr_hash[(size_t)i * P.a + slot];
+        if (slot >= P.m.a) slot = P.m.a - 1;
+        const int nvalue = P.m.attr_hash[(size_t)i * P.m.a + slot];
         float count_at = 0.0f, desired_at = 0.0f;
         bool has_target = false;
         for (int v = 0; v < MAX_V; ++v) {
@@ -461,8 +375,8 @@ fused_place_kernel(FusedParams P) {
         for (int s = 0; s < MAX_S; ++s) {
           const int slot = ri[RI_S_SLOT + s];
           int ss = slot < 0 ? 0 : slot;
-          if (ss >= P.a) ss = P.a - 1;
-          const int nv = P.attr_hash[(size_t)r * P.a + ss];
+          if (ss >= P.m.a) ss = P.m.a - 1;
+          const int nv = P.m.attr_hash[(size_t)r * P.m.a + ss];
           int* vh = s_hash + s * MAX_V;
           int match = -1, free_slot = -1;
           for (int v = 0; v < MAX_V; ++v) {
@@ -506,18 +420,20 @@ extern "C" int nomad_fused_place(
       s_width > MAX_S || n <= 0 || b <= 0 || k <= 0 || a <= 0)
     return (int)cudaErrorInvalidValue;
   FusedParams P;
+  P.m.eligible = eligible;
+  P.m.attr_hash = attr_hash;
+  P.m.attr_num = attr_num;
+  P.m.attr_ver = attr_ver;
+  P.m.class_id = class_id;
+  P.m.dev_total = dev_total;
+  P.m.dev_used = dev_used;
+  P.m.port_words = port_words;
+  P.m.dyn_used = dyn_used;
+  P.m.a = a;
+  P.m.w = w;
   P.totals = totals;
   P.used = used;
-  P.eligible = eligible;
-  P.attr_hash = attr_hash;
-  P.attr_num = attr_num;
-  P.attr_ver = attr_ver;
-  P.class_id = class_id;
-  P.dev_total = dev_total;
-  P.dev_used = dev_used;
   P.prio_used = prio_used;
-  P.port_words = port_words;
-  P.dyn_used = dyn_used;
   P.delta_rows = delta_rows;
   P.delta_vals = delta_vals;
   P.tg_counts = tg_counts;
@@ -531,8 +447,6 @@ extern "C" int nomad_fused_place(
   P.out = out;
   P.scratch = scratch;
   P.n = n;
-  P.a = a;
-  P.w = w;
   P.b = b;
   P.d = d;
   P.k = k;

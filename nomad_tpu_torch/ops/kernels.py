@@ -18,11 +18,11 @@ tensors (:func:`pack_requests`), the layout the CUDA kernels read.  The
 ``lax.scan`` over placements is a Python loop here (the plain version) and
 a loop inside one thread block on the card (``csrc/fused_place.cu``).
 
-On a CPU tensor the wrappers :func:`fused_place` and
-:func:`allocs_fit_verify` run the plain version; on a CUDA tensor they
-launch the hand-written kernel or raise.  Sums over the small slot axes
-are written as ordered loops so the plain version, the kernel and XLA add
-in the same order.
+On a CPU tensor the wrappers :func:`fused_place`,
+:func:`allocs_fit_verify` and :func:`system_feasible` run the plain
+version; on a CUDA tensor they launch the hand-written kernel or raise.
+Sums over the small slot axes are written as ordered loops so the plain
+version, the kernel and XLA add in the same order.
 """
 
 from __future__ import annotations
@@ -205,6 +205,13 @@ def pack_requests(reqs: SchedRequest) -> Tuple[np.ndarray, np.ndarray]:
     assert ints.shape[1] == REQ_INT_WIDTH
     assert floats.shape[1] == REQ_FLOAT_WIDTH
     return ints, floats
+
+
+def pack_request(req: SchedRequest, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One numpy request as the packed ``(1, REQ_INT_WIDTH)`` int32 and
+    ``(1, REQ_FLOAT_WIDTH)`` float32 tensors on ``device`` (B=1)."""
+    ri, rf = pack_requests(SchedRequest(*[np.asarray(f)[None] for f in req]))
+    return torch.from_numpy(ri).to(device), torch.from_numpy(rf).to(device)
 
 
 class LaneRequest(NamedTuple):
@@ -917,13 +924,74 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
 allocs_fit_verify.launches = 0
 
 
+def system_feasible_plain(arrays: DeviceArrays, used0, req_i, req_f,
+                          class_elig, host_mask):
+    """Plain version of the ``system_feasible`` kernel: the full-feature
+    :func:`feasibility_mask` and the fit of :func:`fit_and_binpack` at
+    B=1, stacked as ``[mask, fits]``, (2, N) bool."""
+    system_feasible_plain.calls += 1
+    req = unpack_requests(req_i, req_f)
+    mask = feasibility_mask(arrays, req, class_elig[None], host_mask[None])
+    fits, _ = fit_and_binpack(arrays, used0[None], req)
+    return torch.stack([mask[0], fits[0]])
+
+
+system_feasible_plain.calls = 0
+
+
+def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
+                    host_mask):
+    """Feasibility and fit of one request on every node — the
+    ``system_feasible`` kernel (``csrc/system_feasible.cu``) on the card,
+    :func:`system_feasible_plain` on the CPU.  ``used0`` is the dense
+    (N, 3) proposed usage, ``req_i``/``req_f`` one packed request
+    (:func:`pack_request`), ``class_elig`` (K,) bool, ``host_mask`` (N,)
+    bool.  Returns (2, N) bool: ``[mask, fits]``."""
+    if used0.device.type == "cpu":
+        return system_feasible_plain(arrays, used0, req_i, req_f, class_elig,
+                                     host_mask)
+    if used0.device.type != "cuda":
+        raise ValueError(f"system_feasible: unsupported device {used0.device}")
+    dev = used0.device
+    n = _check_matrix(arrays, used0, dev)
+    k = class_elig.shape[0]
+    _check("req_i", req_i, torch.int32, (1, REQ_INT_WIDTH), dev)
+    _check("req_f", req_f, torch.float32, (1, REQ_FLOAT_WIDTH), dev)
+    _check("class_elig", class_elig, torch.bool, (k,), dev)
+    _check("host_mask", host_mask, torch.bool, (n,), dev)
+    if k < 1:
+        raise ValueError("class_elig must hold at least one class")
+    from .build import load_library
+
+    lib = load_library("system_feasible")
+    out = torch.empty((2, n), dtype=torch.bool, device=dev)
+    rc = lib.nomad_system_feasible(
+        _ptr(arrays.totals), _ptr(used0), _ptr(arrays.eligible),
+        _ptr(arrays.attr_hash), _ptr(arrays.attr_num), _ptr(arrays.attr_ver),
+        _ptr(arrays.class_id), _ptr(arrays.dev_total), _ptr(arrays.dev_used),
+        _ptr(arrays.port_words), _ptr(arrays.dyn_used), _ptr(req_i),
+        _ptr(req_f), _ptr(class_elig), _ptr(host_mask), _ptr(out),
+        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
+        _stream(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"system_feasible launch failed: CUDA error {rc}")
+    system_feasible.launches += 1
+    return out
+
+
+system_feasible.launches = 0
+
+
 def reset_counts() -> None:
     """Zero every launch and call count (the smoke reads them around the
     main path)."""
     fused_place.launches = 0
     allocs_fit_verify.launches = 0
+    system_feasible.launches = 0
     place_lanes.calls = 0
     verify_lanes.calls = 0
+    system_feasible_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -966,8 +1034,7 @@ def place_task_group(arrays: DeviceArrays, req: SchedRequest, used0,
     numpy request; the node-axis inputs are tensors on the matrix's
     device.  Returns host-side numpy results."""
     dev = used0.device
-    stacked = SchedRequest(*[np.asarray(f)[None] for f in req])
-    ri, rf = pack_requests(stacked)
+    ri, rf = pack_request(req, dev)
     packed = fused_place(
         arrays, used0.contiguous(),
         torch.full((1, 1), -1, dtype=torch.int32, device=dev),
@@ -975,7 +1042,7 @@ def place_task_group(arrays: DeviceArrays, req: SchedRequest, used0,
         tg_count[None].contiguous(),
         spread_counts[None].contiguous(),
         penalty[None].contiguous(),
-        torch.from_numpy(ri).to(dev), torch.from_numpy(rf).to(dev),
+        ri, rf,
         class_elig[None].contiguous(), host_mask[None].contiguous(),
         torch.ones((1,), dtype=torch.bool, device=dev),
         n_placements, features,

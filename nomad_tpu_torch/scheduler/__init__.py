@@ -4,16 +4,18 @@ Mirrors the reference's ``scheduler/`` package boundary: a scheduler is a
 pure function of (snapshot, eval) → plan submitted through a ``Planner``
 (scheduler/scheduler.go:54-119).  The ranking pipeline runs as kernels on
 the card (``nomad_tpu_torch.ops.kernels``); this package is the host
-orchestration around them.  Only the service and batch schedulers are
-ported so far.
+orchestration around them.  The service, batch and system schedulers
+are ported; the core (GC) scheduler is not yet.
 """
 
 from .generic import GenericScheduler
-from .stack import GenericStack
+from .system import SystemScheduler
+from .stack import GenericStack, SystemStack
 
 BUILTIN_SCHEDULERS = {
     "service": lambda *a, **kw: GenericScheduler("service", *a, **kw),
     "batch": lambda *a, **kw: GenericScheduler("batch", *a, **kw),
+    "system": lambda *a, **kw: SystemScheduler(*a, **kw),
 }
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +32,13 @@ from ..ops.encode import (
     pow2_bucket as _pow2_bucket,
 )
 from ..ops import kernels
-from ..state.matrix import DEVICE_LOCK, NodeMatrix, node_attributes, stable_hash
+from ..state.matrix import (
+    DEVICE_LOCK,
+    PORT_BITS,
+    NodeMatrix,
+    node_attributes,
+    stable_hash,
+)
 from ..structs.types import (
     Allocation,
     AllocMetric,
@@ -83,6 +89,49 @@ def _dense_used0(arrays, deltas: Dict[int, np.ndarray]) -> torch.Tensor:
         used0.index_add_(0, torch.from_numpy(rows).to(dev),
                          torch.from_numpy(dvals).to(dev))
     return used0
+
+
+def _release_own_ports(arrays, own_ports: Dict[int, set]):
+    """The snapshot with the ports of this job's own allocs taken off their
+    nodes' port bitmaps and dynamic-port counts, as ``used0`` takes off
+    their resources: a re-evaluation replaces those allocs, so their ports
+    must not make their own nodes infeasible.  The JAX package keeps them
+    in, and a system job with a static port loses all but its newest
+    allocs on every re-evaluation (ROADMAP queue 3, R3).  Device code —
+    call on the device thread."""
+    if not own_ports:
+        return arrays
+    words: Dict[tuple, int] = {}
+    dyn: Dict[int, int] = {}
+    for row, ports in own_ports.items():
+        for p in ports:
+            if MIN_DYNAMIC_PORT <= p <= MAX_DYNAMIC_PORT:
+                dyn[row] = dyn.get(row, 0) + 1
+            if 0 <= p < PORT_BITS:
+                key = (row, p >> 5)
+                words[key] = words.get(key, 0) | (1 << (p & 31))
+    dev = arrays.port_words.device
+    port_words, dyn_used = arrays.port_words, arrays.dyn_used
+    if words:
+        width = port_words.shape[1]
+        idx = torch.tensor([r * width + w for r, w in words],
+                           dtype=torch.int64, device=dev)
+        keep = (~np.array(list(words.values()), np.uint32)).view(np.int32)
+        port_words = port_words.clone()
+        flat = port_words.view(-1)
+        flat[idx] = flat[idx] & torch.from_numpy(keep).to(dev)
+    if dyn:
+        rows = torch.tensor(list(dyn), dtype=torch.int64, device=dev)
+        held = torch.tensor(list(dyn.values()), dtype=torch.int32, device=dev)
+        dyn_used = dyn_used.clone()
+        dyn_used[rows] = (dyn_used[rows] - held).clamp(min=0)
+    return arrays._replace(port_words=port_words, dyn_used=dyn_used)
+
+
+def _on_device(arr: np.ndarray, dev) -> torch.Tensor:
+    """A private copy of a host array on ``dev`` (host masks may be shared
+    read-only arrays, which ``torch.from_numpy`` must not wrap)."""
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
 
 def _full_mask(n: int, host_mask: Optional[np.ndarray]) -> np.ndarray:
@@ -569,19 +618,16 @@ class GenericStack:
             dev = arrays.used.device
             bucket = min(_pow2_bucket(remaining), PLACEMENT_CHUNK)
             feats = _ratchet_features(compiled.request)
-
-            def on_dev(arr):
-                return torch.from_numpy(np.array(arr, copy=True)).to(dev)
-
             result = kernels.place_task_group(
                 arrays,
                 compiled.request,
                 _dense_used0(arrays, deltas),
-                on_dev(_pad_width(tg_count, n_dev, 0).astype(np.int32)),
-                on_dev(spread_counts.astype(np.float32)),
-                on_dev(_pad_width(penalty, n_dev, False)),
-                on_dev(class_elig),
-                on_dev(_pad_width(_full_mask(n, host_mask), n_dev, False)),
+                _on_device(_pad_width(tg_count, n_dev, 0).astype(np.int32), dev),
+                _on_device(spread_counts.astype(np.float32), dev),
+                _on_device(_pad_width(penalty, n_dev, False), dev),
+                _on_device(class_elig, dev),
+                _on_device(_pad_width(_full_mask(n, host_mask), n_dev, False),
+                           dev),
                 n_placements=bucket,
                 features=feats,
             )
@@ -726,6 +772,17 @@ class GenericStack:
                     retries += 1
                     retry = True
                     break
+                if (verified_all is not None and not bool(verified_all[i])
+                        and not bool(preempted[i])):
+                    # The device's cross-lane verify says an earlier lane of
+                    # the same launch took this node's room: the applier
+                    # would reject the pick, so pick again without it.  (The
+                    # JAX package submits the pick anyway; ROADMAP queue 3,
+                    # R4.)
+                    banned_rows.append(int(row))
+                    retries += 1
+                    retry = True
+                    break
                 metric.score_node(node_id, "binpack", float(binpack[i]))
                 metric.score_node(node_id, "final", float(scores[i]))
                 opt = SelectionOption(
@@ -767,3 +824,70 @@ class GenericStack:
         return options
 
 
+class SystemStack(GenericStack):
+    """System-job stack: feasibility for every node at once
+    (reference: stack.go:183-321; the system scheduler places one alloc per
+    feasible node, system_sched.go:22-54)."""
+
+    def feasible_nodes(self, tg: TaskGroup) -> Tuple[List[str], AllocMetric]:
+        assert self.job is not None
+        job = self.job
+        with trace.span("sched.encode"):
+            compiled = self.encoder.compile(
+                job, tg, algorithm=self.algorithm, preemption_enabled=False
+            )
+        with trace.span("sched.feasibility"):
+            class_elig = self._class_eligibility(compiled)
+            host_mask = self._host_mask(job, tg, compiled)
+        self._record_eligibility(class_elig, host_mask)
+        n = self.matrix.capacity
+
+        # Fit and ports must judge the node *without* this job's own TG
+        # alloc — a re-evaluation replaces it, it doesn't stack a second
+        # copy — and with the in-flight plan's stops/placements folded in.
+        deltas = self._plan_usage_deltas()
+        own_ports: Dict[int, set] = {}
+        for a in self.ctx.snapshot.allocs_by_job(job.namespace, job.id):
+            if a.terminal_status() or a.task_group != tg.name:
+                continue
+            row = self.matrix.row_of.get(a.node_id)
+            if row is None:
+                continue
+            d = deltas.setdefault(row, np.zeros(3, np.float32))
+            r = a.resources
+            d -= np.array([r.cpu, r.memory_mb, r.disk_mb], np.float32)
+            ports = NodeMatrix.ports_of(a)
+            if ports:
+                own_ports.setdefault(row, set()).update(ports)
+
+        def dev_op():
+            arrays = self.matrix.sync()
+            n_dev = int(arrays.used.shape[0])
+            dev = arrays.used.device
+            req_i, req_f = kernels.pack_request(compiled.request, dev)
+            # One stacked (2, N) result = one device→host copy.
+            return kernels.system_feasible(
+                _release_own_ports(arrays, own_ports),
+                _dense_used0(arrays, deltas),
+                req_i,
+                req_f,
+                _on_device(class_elig, dev),
+                _on_device(_pad_width(_full_mask(n, host_mask), n_dev, False),
+                           dev),
+            ).cpu().numpy()
+
+        with trace.span("sched.dispatch"):
+            mf = self.matrix.run_on_device(dev_op)
+        mask, fits = mf[0], mf[1]
+        ok = mask & fits
+        metric = AllocMetric(
+            nodes_evaluated=int(mask.sum()),
+            nodes_filtered=int((~mask).sum()),
+            nodes_exhausted=int((mask & ~fits).sum()),
+        )
+        out = []
+        for row in np.nonzero(ok)[0]:
+            node_id = self.matrix.node_of.get(int(row))
+            if node_id is not None:
+                out.append(node_id)
+        return out, metric

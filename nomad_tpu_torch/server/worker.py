@@ -24,8 +24,8 @@ from ..structs.types import Evaluation, Plan, PlanResult
 log = logging.getLogger(__name__)
 
 # Scheduler types a worker serves (reference: config.EnabledSchedulers);
-# the system and core schedulers are not part of this package yet.
-DEFAULT_SCHEDULERS = ["service", "batch"]
+# the core scheduler is not part of this package yet.
+DEFAULT_SCHEDULERS = ["service", "batch", "system"]
 
 # Backstop so a wedged applier can't deadlock a worker forever.
 PLAN_APPLY_TIMEOUT = 60.0

@@ -9,6 +9,8 @@ only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -226,4 +228,109 @@ def test_server_on_card_places_like_cpu(cuda):
     before = k.fused_place.launches
     on_card = drive(cuda)
     assert k.fused_place.launches > before
+    assert on_card == drive("cpu")
+
+
+def system_requests(m):
+    """System-job requests: a held static port, a datacenter list, numeric,
+    version and presence constraints, and an ask that exhausts nodes."""
+    enc = RequestEncoder(m)
+    out = []
+    for i in range(5):
+        job = mock.system_job()
+        job.datacenters = ["dc1", "dc2"]
+        tg = job.task_groups[0]
+        if i == 0:
+            tg.tasks[0].resources.networks = [NetworkResource(
+                reserved_ports=[9000])]
+        if i == 1:
+            job.datacenters = ["dc2"]
+        if i == 2:
+            tg.constraints = [
+                Constraint(l_target="${attr.os.version}", operand="version",
+                           r_target=">= 20.0"),
+                Constraint(l_target="${attr.rack}", operand="is_set"),
+                Constraint(l_target="${attr.kernel.name}", operand=">",
+                           r_target="3"),  # a NaN column: fails everywhere
+            ]
+        if i == 3:
+            tg.constraints = [Constraint(l_target="${attr.rack}",
+                                         operand="!=", r_target="r2")]
+        if i == 4:
+            tg.tasks[0].resources.cpu = 5000
+        out.append(enc.compile(job, tg).request)
+    return out
+
+
+@pytest.mark.cuda
+def test_system_feasible_matches_plain(cuda):
+    m = cluster(cuda)
+    arrays = m.sync()
+    n = arrays.used.shape[0]
+    rng = np.random.default_rng(8)
+    used0 = arrays.used.clone()
+    rows = torch.from_numpy(rng.choice(N_NODES, 40, replace=False)).to(cuda)
+    used0[rows[:20]] -= 200.0
+    used0[rows[20:]] += 900.0
+    host_mask = torch.ones((n,), dtype=torch.bool, device=cuda)
+    host_mask[::11] = False
+    for req in system_requests(m):
+        ri, rf = k.pack_request(req, cuda)
+        for ce in (torch.ones((8,), dtype=torch.bool),
+                   torch.tensor([False, True])):
+            ce = ce.to(cuda)
+            before = k.system_feasible.launches
+            got = k.system_feasible(arrays, used0, ri, rf, ce, host_mask)
+            assert k.system_feasible.launches == before + 1
+            want = k.system_feasible_plain(arrays, used0, ri, rf, ce,
+                                           host_mask)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bool and got.shape == (2, n)
+            # Exactly 0 or 1 in every byte.
+            assert int(got.view(torch.uint8).max()) <= 1
+            assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_system_server_on_card_places_like_cpu(cuda):
+    """A system job on 48 nodes, then 4 more nodes and one node down: the
+    card server ends with the allocations the CPU server ends with."""
+
+    def drive(device):
+        srv = Server(ServerConfig(num_workers=1, node_capacity=64,
+                                  heartbeat_min_ttl=3600.0,
+                                  heartbeat_max_ttl=7200.0), device=device)
+        srv.start()
+        try:
+            nodes = []
+            for i in range(52):
+                node = mock.node()
+                node.id = node.name = f"node-{i:02d}"
+                node.datacenter = "dc1" if i % 4 else "dc2"
+                node.resources.cpu = 1500 + 500 * (i % 7)  # some too small
+                nodes.append(node)
+            for node in nodes[:48]:
+                srv.register_node(node)
+            job = mock.system_job()
+            job.id = job.name = "exporter"
+            job.datacenters = ["dc1", "dc2"]
+            job.task_groups[0].tasks[0].resources.cpu = 2200
+            ev = srv.submit_job(job)
+            assert srv.wait_for_eval(ev.id, 60.0).status == "complete"
+            for node in nodes[48:]:
+                srv.register_node(node)
+            srv.update_node_status("node-05", "down")
+            deadline = time.time() + 60.0
+            while any(not e.terminal_status() and e.status != "blocked"
+                      for e in list(srv.store.evals.values())):
+                assert time.time() < deadline, "evals did not finish"
+                time.sleep(0.05)
+            return {(a.name, a.node_id): (a.desired_status, a.client_status)
+                    for a in srv.store.allocs.values()}
+        finally:
+            srv.shutdown()
+
+    before = k.system_feasible.launches
+    on_card = drive(cuda)
+    assert k.system_feasible.launches >= before + 6
     assert on_card == drive("cpu")
