@@ -35,7 +35,8 @@ Phases:
    group of 56 whose plan outgrows 32 deltas: it must take the solo path,
    launch fused_place and never the plain version.  A burst of 64 jobs
    runs under the CUDA profiler and prints the card's busy and idle share
-   and its device time by activity.  Last, with the counts zeroed again,
+   and its device time by activity; each of its jobs must be placed in
+   full.  Last, with the counts zeroed again,
    the system path: two system jobs (``node-exporter`` everywhere with
    static port 9100, ``log-shipper`` in dc1 off class-3) must hold one
    alloc on exactly the nodes their specs call for; 32 nodes join and get
@@ -53,6 +54,34 @@ Phases:
    rate and the float32 operations it needs over the card's float32
    rate.  ``system_feasible`` also gets its device time from the
    profiler and the time of one whole system dispatch.
+
+7. batched scoring — ``score_batch`` (one launch scores every node for
+   B independent evals and picks each one's best) on a fresh cluster
+   built as phase 2's (10,000 nodes, 2M allocs' usage), at the bench's
+   shapes: lane i the bench's job shape i mod 8, operands
+   from ``parallel.build_batch_inputs``, features widened over the eight
+   shapes.  Against the plain version (run in chunks of 256 lanes: its
+   (B, N, V) intermediates are gigabytes each at B=4096) at B=4096 and
+   B=256, on the feature batch's shapes at B=64 and full features with
+   tg counts, penalties, class eligibility, host masks and spread tables
+   that are not trivial, and through ``nomad_tpu_torch.entry.entry()``:
+   rows, preemption flags and counters equal, scores and binpack within
+   rtol 1e-4, atol 1e-5.  Then the main path, with every count zeroed
+   just before and read just after: ``entry()``, 100 sync dispatches at
+   B=4096 and at B=256 (each ending in a ``.cpu()`` of rows; median and
+   p99) and 100 pipelined dispatches at B=4096, depth 8 (evals/s): the
+   kernel must have launched once per dispatch and the plain version
+   never.  Last, its CUDA-event time (median of 20), profiler device time,
+   the plain version's time, the bound, and 20 sync dispatches under the
+   profiler (busy share, kernel vs copy).
+8. plan verify — ``verify_plan_fit`` on a seeded plan of 10,000 rows
+   (padding, deltas past a node's room, negative deltas, ineligible
+   nodes, a mixed eligible_required) and on each (rows, deltas,
+   eligible_required) the applier checked for node-exporter in phase 5
+   (recorded through ``server/plan_apply.py:host_verify``), launch counts
+   zeroed around those calls; against its plain version and
+   ``host_verify`` on every row (and the applier's own verdicts); every
+   output byte 0 or 1; its times and bound at K=10,000.
 
 Prints the kernel table as one JSON line before the last, and ends with
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -92,6 +121,16 @@ SYSTEM_NEW_NODES = 32
 SYSTEM_DRAINS = 16
 SYSTEM_DOWNS = 16
 LIFECYCLE_TIMEOUT_S = 300.0
+# Batched scoring (bench.py's kernel phase: BATCH, INTERACTIVE_BATCH,
+# DISPATCHES, PIPELINE_DEPTH).
+SCORE_BATCH = 4096
+INTERACTIVE_BATCH = 256
+FEATURE_LANES = 64
+DISPATCHES = 100
+PIPELINE_DEPTH = 8
+PIPE_DISPATCHES = 100
+PLAIN_CHUNK = 256  # lanes per call of the plain version on the card
+VERIFY_ROWS = 10_000  # plan rows of the seeded verify case
 
 
 def log(msg: str) -> None:
@@ -384,6 +423,74 @@ def _is_numeric(op: int) -> bool:
     return 2 <= op <= 5 or op >= 8
 
 
+class LaneTerms:
+    """What one lane's request makes a kernel read and compute: the
+    attribute slots it refers to (hash, numeric, version), the port words
+    of its static ports, its numeric constraint count, and its float32
+    operations for a scored node, for the winner row, and per node and
+    step (the spread term and the argmax compare)."""
+
+    def __init__(self, reqs, lane: int, f):
+        from nomad_tpu_torch.ops.encode import MAX_SPREAD_VALUES
+        from nomad_tpu_torch.state.matrix import PRIORITY_BUCKETS
+
+        self.slots, self.num_slots, self.ver_slots = set(), set(), set()
+        self.words = set()
+        c_slot, c_op = reqs.c_slot[lane], reqs.c_op[lane]
+        a_slot, a_op = reqs.a_slot[lane], reqs.a_op[lane]
+        s_slot = reqs.s_slot[lane]
+        if int(reqs.dc_hash[lane][0]) != -1:
+            self.slots.add(0)
+        for slot, op in list(zip(c_slot, c_op))[:f.c_width] + list(
+                zip(a_slot, a_op))[:f.a_width]:
+            if slot < 0:
+                continue
+            self.slots.add(int(slot))
+            if 2 <= op <= 5:
+                self.num_slots.add(int(slot))
+            elif op >= 8:
+                self.ver_slots.add(int(slot))
+        live_s = [int(s) for s in s_slot[:f.s_width] if s >= 0]
+        self.slots.update(live_s)
+        if f.ports:
+            self.words.update(int(p) >> 5 for p in reqs.p_static[lane]
+                              if p >= 0)
+        kb = int(np.clip(reqs.preempt_bucket[lane], 0, PRIORITY_BUCKETS))
+        pre = f.preempt and int(reqs.preempt_bucket[lane]) >= 0
+
+        self.c_num = sum(_is_numeric(int(o)) for s, o in zip(
+            c_slot[:f.c_width], c_op[:f.c_width]) if s >= 0)
+        a_live = [(s, o) for s, o in zip(a_slot[:f.a_width], a_op[:f.a_width])
+                  if s >= 0]
+        self.winner = (FIT_OPS + ANTI_AFFINITY_OPS + COMBINE_OPS
+                       + (PREEMPT_TAIL_OPS if pre else 0))
+        self.scored = (self.winner + (PREEMPT_BUCKET_OPS * kb if pre else 0)
+                       + sum(AFFINITY_SLOT_OPS
+                             + NUMERIC_PREDICATE_OPS * _is_numeric(int(o))
+                             for _, o in a_live)
+                       + (AFFINITY_TAIL_OPS if a_live else 0)
+                       + SPREAD_VALUE_OPS * MAX_SPREAD_VALUES * len(live_s))
+        self.step = 1 + (SPREAD_STEP_OPS * len(live_s) + 3 if live_s else 0)
+
+
+def matrix_bytes(n: int, reqs, live, f, terms) -> int:
+    """Bytes of the matrix columns that the live lanes' ``terms`` refer
+    to, each read once over ``n`` rows."""
+    from nomad_tpu_torch.state.matrix import PRIORITY_BUCKETS
+
+    slots = set().union(*(t.slots for t in terms))
+    num_slots = set().union(*(t.num_slots for t in terms))
+    ver_slots = set().union(*(t.ver_slots for t in terms))
+    words = set().union(*(t.words for t in terms))
+    return n * (
+        12 + 12 + 1 + 4  # totals, used, eligible, class_id
+        + 4 * len(slots) + 4 * len(num_slots) + 4 * len(ver_slots)
+        + (64 if np.any(np.asarray(reqs.dev_ask)[live] > 0) else 0)
+        + (4 + 4 * len(words) if f.ports else 0)  # dyn_used, port words
+        + (PRIORITY_BUCKETS * 12 if f.preempt else 0)  # prio_used
+    )
+
+
 def fused_place_work(batch: Batch, packed, n_placements: int):
     """(bytes, float32 ops) the fused_place function needs on this batch.
 
@@ -401,8 +508,6 @@ def fused_place_work(batch: Batch, packed, n_placements: int):
     its first failed one (the kernel stops there); ``packed`` gives the
     steps and each step's feasible-node count."""
     from nomad_tpu_torch.ops import kernels as k
-    from nomad_tpu_torch.ops.encode import MAX_SPREAD_VALUES
-    from nomad_tpu_torch.state.matrix import PRIORITY_BUCKETS
 
     arrays, f, reqs = batch.arrays, batch.features, batch.np["reqs"]
     n = int(arrays.used.shape[0])
@@ -411,66 +516,55 @@ def fused_place_work(batch: Batch, packed, n_placements: int):
     rows = out[..., k.PACKED_ROW]
     evaluated = out[..., k.PACKED_EVALUATED].astype(np.int64)
 
-    slots, num_slots, ver_slots, words = set(), set(), set(), set()
+    terms = []
     ops = 0
     for lane in np.flatnonzero(live):
-        c_slot, c_op = reqs.c_slot[lane], reqs.c_op[lane]
-        a_slot, a_op = reqs.a_slot[lane], reqs.a_op[lane]
-        s_slot = reqs.s_slot[lane]
-        if int(reqs.dc_hash[lane][0]) != -1:
-            slots.add(0)
-        for slot, op in list(zip(c_slot, c_op))[:f.c_width] + list(
-                zip(a_slot, a_op))[:f.a_width]:
-            if slot < 0:
-                continue
-            slots.add(int(slot))
-            if 2 <= op <= 5:
-                num_slots.add(int(slot))
-            elif op >= 8:
-                ver_slots.add(int(slot))
-        live_s = [int(s) for s in s_slot[:f.s_width] if s >= 0]
-        slots.update(live_s)
-        if f.ports:
-            words.update(int(p) >> 5 for p in reqs.p_static[lane] if p >= 0)
-        kb = int(np.clip(reqs.preempt_bucket[lane], 0, PRIORITY_BUCKETS))
-        pre = f.preempt and int(reqs.preempt_bucket[lane]) >= 0
-
-        c_num = sum(_is_numeric(int(o)) for s, o in zip(
-            c_slot[:f.c_width], c_op[:f.c_width]) if s >= 0)
-        a_live = [(s, o) for s, o in zip(a_slot[:f.a_width], a_op[:f.a_width])
-                  if s >= 0]
-        winner = (FIT_OPS + ANTI_AFFINITY_OPS + COMBINE_OPS
-                  + (PREEMPT_TAIL_OPS if pre else 0))
-        scored = (winner + (PREEMPT_BUCKET_OPS * kb if pre else 0)
-                  + sum(AFFINITY_SLOT_OPS
-                        + NUMERIC_PREDICATE_OPS * _is_numeric(int(o))
-                        for _, o in a_live)
-                  + (AFFINITY_TAIL_OPS if a_live else 0)
-                  + SPREAD_VALUE_OPS * MAX_SPREAD_VALUES * len(live_s))
-        step = 1 + (SPREAD_STEP_OPS * len(live_s) + 3 if live_s else 0)
+        t = LaneTerms(reqs, lane, f)
+        terms.append(t)
         failed = np.flatnonzero(rows[lane, :n_placements] < 0)
         steps = int(failed[0]) + 1 if len(failed) else n_placements
         deltas = int((batch.np["delta_rows"][lane] >= 0).sum())
-        ops += (n * NUMERIC_PREDICATE_OPS * c_num
-                + int(evaluated[lane, 0]) * scored
-                + int(evaluated[lane, :steps].sum()) * step
-                + steps * winner + 3 * deltas)
+        ops += (n * NUMERIC_PREDICATE_OPS * t.c_num
+                + int(evaluated[lane, 0]) * t.scored
+                + int(evaluated[lane, :steps].sum()) * t.step
+                + steps * t.winner + 3 * deltas)
 
     b_live = int(live.sum())
-    matrix_bytes = n * (
-        12 + 12 + 1 + 4  # totals, used, eligible, class_id
-        + 4 * len(slots) + 4 * len(num_slots) + 4 * len(ver_slots)
-        + (64 if np.any(np.asarray(reqs.dev_ask)[live] > 0) else 0)
-        + (4 + 4 * len(words) if f.ports else 0)  # dyn_used, port words
-        + (PRIORITY_BUCKETS * 12 if f.preempt else 0)  # prio_used
-    )
     lane_bytes = b_live * sum(
         v[0].nbytes for name, v in batch.np.items()
         if name not in ("reqs", "lane_mask"))
     lane_bytes += live.nbytes + b_live * (
         batch.t["req_i"][0].numel() + batch.t["req_f"][0].numel()) * 4
     out_bytes = live.shape[0] * n_placements * k.PACKED_WIDTH * 4
-    return matrix_bytes + lane_bytes + out_bytes, ops
+    return matrix_bytes(n, reqs, live, f, terms) + lane_bytes + out_bytes, ops
+
+
+def score_batch_work(arrays, reqs, f, args, packed):
+    """(bytes, float32 ops) the score_batch function needs on these
+    inputs.  Bytes: the matrix columns the lanes refer to, once; every
+    per-lane operand (``args[2:]``: tg counts, spread counts, penalties,
+    the packed request, class eligibility, host masks) once; the (B, 7)
+    output once.  Operations, as ``fused_place_work`` counts them for one
+    step: the numeric constraint predicates on every (lane, node), and
+    on every (lane, feasible node) the score terms, the spread term and
+    the argmax compare (``packed`` gives each lane's feasible count)."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    n = int(arrays.used.shape[0])
+    out = np.asarray(packed.cpu())
+    evaluated = out[:, k.PACKED_EVALUATED].astype(np.int64)
+    b = out.shape[0]
+    live = np.ones((b,), bool)
+    terms = []
+    ops = 0
+    for lane in range(b):
+        t = LaneTerms(reqs, lane, f)
+        terms.append(t)
+        ops += (n * NUMERIC_PREDICATE_OPS * t.c_num
+                + int(evaluated[lane]) * (t.scored + t.step))
+    lane_bytes = sum(a.numel() * a.element_size() for a in args[2:])
+    out_bytes = b * k.PACKED_WIDTH * 4
+    return matrix_bytes(n, reqs, live, f, terms) + lane_bytes + out_bytes, ops
 
 
 def verify_work(batch: Batch, packed, n_placements: int):
@@ -832,7 +926,7 @@ def phase_system_kernel(m, results: dict) -> None:
     results["system_feasible"] = {"max_abs_err": err, "matches_plain": True}
 
 
-def phase_server(card: str, results: dict) -> None:
+def phase_server(card: str, results: dict, recorder) -> None:
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import kernels as k
     from nomad_tpu_torch.server.server import Server, ServerConfig
@@ -879,11 +973,13 @@ def phase_server(card: str, results: dict) -> None:
             "plain": k.place_lanes.calls + k.verify_lanes.calls,
         }
         statuses = {srv.store.eval_by_id(e.id).status for e in evals}
+        retried = retried_evals(srv, evals)
         allocs = [a for a in srv.store.allocs.values()
                   if not a.terminal_status()]
         log(f"server: {SERVER_JOBS} jobs x {SERVER_COUNT} in {elapsed:.3f} s = "
             f"{SERVER_JOBS / elapsed:.1f} evals/s, {len(allocs)} allocations, "
-            f"eval statuses {sorted(statuses)}, "
+            f"eval statuses {sorted(statuses)} ({retried} retried after "
+            f"placement conflicts), "
             f"{srv.coalescer.dispatches} dispatches / "
             f"{srv.coalescer.fused_lanes} lanes (card: {card})")
         log(f"server: launches during the run {launches}")
@@ -916,7 +1012,7 @@ def phase_server(card: str, results: dict) -> None:
         }
         solo_run(srv, make_job, results)
         trace_burst(srv, [make_job(i) for i in range(SERVER_JOBS)], card)
-        system_run(srv, specs, card, results)
+        system_run(srv, specs, card, results, recorder)
     finally:
         srv.shutdown()
 
@@ -956,7 +1052,9 @@ def play_client(srv) -> int:
 
 def wait_quiet(srv, what: str, timeout_s: float = LIFECYCLE_TIMEOUT_S) -> float:
     """Wait until no eval is queued or in flight and every eval in the
-    store is terminal or blocked, three polls in a row; returns seconds."""
+    store is terminal or blocked for want of room, three polls in a row;
+    returns seconds.  An eval blocked after placement conflicts is still
+    open: the server runs it again."""
     t0 = time.perf_counter()
     broker = srv.eval_broker
     quiet = 0
@@ -965,8 +1063,9 @@ def wait_quiet(srv, what: str, timeout_s: float = LIFECYCLE_TIMEOUT_S) -> float:
             raise AssertionError(f"{what}: evals still open after {timeout_s:.0f} s")
         busy = (broker.ready_count() + broker.unacked_count()
                 + broker.pending_count() + broker.delayed_count())
-        open_evals = any(not e.terminal_status() and e.status != "blocked"
-                         for e in list(srv.store.evals.values()))
+        open_evals = any(not e.terminal_status() and (
+            e.status != "blocked" or e.triggered_by == "max-plan-attempts")
+            for e in list(srv.store.evals.values()))
         quiet = quiet + 1 if not busy and not open_evals else 0
         time.sleep(0.02)
     return time.perf_counter() - t0
@@ -993,7 +1092,8 @@ def check_capacity(srv, label: str) -> None:
         raise AssertionError(f"{label}: {len(over)} node rows over capacity")
 
 
-def system_run(srv, specs: dict, card: str, results: dict) -> None:
+def system_run(srv, specs: dict, card: str, results: dict,
+               recorder) -> None:
     """The system path on the server phase's 10,000 nodes: two system jobs,
     then 32 joining nodes, 16 drains and 16 nodes down, with every count
     checked exactly.  Launch counts are zeroed just before and read just
@@ -1044,12 +1144,14 @@ def system_run(srv, specs: dict, card: str, results: dict) -> None:
         match = {nid for nid, spec in specs.items() if matches[job.id](*spec)}
         room = {nid for nid in match if room_rows[srv.matrix.row_of[nid]]}
         t0 = time.perf_counter()
+        recorder.armed = job is exporter  # phase 8 replays its checks
         ev = srv.submit_job(job)
         while not srv.store.eval_by_id(ev.id).terminal_status():
             if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
                 raise AssertionError(f"{job.id}: eval not terminal in time")
             time.sleep(0.005)
         secs = time.perf_counter() - t0
+        recorder.armed = False
         cur = srv.store.eval_by_id(ev.id)
         exhausted = sum(m.nodes_exhausted for m in cur.failed_tg_allocs.values())
         log(f"system: {job.id} eval {cur.status} in {secs:.3f} s (submit -> "
@@ -1233,9 +1335,27 @@ def solo_run(srv, make_job, results: dict) -> None:
         "launches": launches["fused_place"], "solo_selects": solo_ops}
 
 
+def last_eval(srv, eval_id: str):
+    """The eval that ``eval_id`` ends in: an eval that failed on placement
+    conflicts hands its job to a blocked retry (``blocked_eval``), which
+    the server runs again after a while."""
+    ev = srv.store.eval_by_id(eval_id)
+    while ev is not None and ev.status == "failed" and ev.blocked_eval:
+        ev = srv.store.eval_by_id(ev.blocked_eval)
+    return ev
+
+
+def retried_evals(srv, evals) -> int:
+    """How many of ``evals`` failed on placement conflicts and left their
+    job to a blocked retry."""
+    return sum(1 for e in evals
+               if srv.store.eval_by_id(e.id).blocked_eval
+               and srv.store.eval_by_id(e.id).status == "failed")
+
+
 def burst(srv, jobs, timeout_s: float = 300.0):
-    """Submit ``jobs`` and wait until every eval is terminal; returns
-    (evals, seconds)."""
+    """Submit ``jobs`` and wait until every eval, or the retry it left
+    after placement conflicts, is terminal; returns (evals, seconds)."""
     t0 = time.perf_counter()
     evals = [srv.submit_job(job) for job in jobs]
     deadline = time.time() + timeout_s
@@ -1243,8 +1363,8 @@ def burst(srv, jobs, timeout_s: float = 300.0):
     while pending and time.time() < deadline:
         pending = {
             eid for eid in pending
-            if not (srv.store.eval_by_id(eid) is not None
-                    and srv.store.eval_by_id(eid).terminal_status())
+            if not (last_eval(srv, eid) is not None
+                    and last_eval(srv, eid).terminal_status())
         }
         if pending:
             time.sleep(0.005)
@@ -1258,13 +1378,26 @@ def trace_burst(srv, jobs, card: str) -> None:
     """A second burst of the same size under the CUDA profiler (device
     activity only): how much of the burst's wall time the card spent on
     kernels and copies, by name.  The sum over activities counts any
-    overlap twice, so the busy share is an upper bound."""
+    overlap twice, so the busy share is an upper bound.  Every job of the
+    burst must hold its full count after it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = burst(srv, jobs)
+        evals, wall = burst(srv, jobs)
         torch.cuda.synchronize()
+    # Every job of the traced burst placed in full: the system phase counts
+    # on each service job holding its count.
+    short = []
+    for job, ev in zip(jobs, evals):
+        have = len(live_allocs(srv, job.id))
+        if have != job.task_groups[0].count:
+            cur = last_eval(srv, ev.id)
+            short.append(f"{job.id}: {have} allocs, eval {cur.status} "
+                         f"({cur.status_description})")
+    if short:
+        raise AssertionError(f"traced burst left {len(short)} jobs short: "
+                             + "; ".join(short[:4]))
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1278,7 +1411,8 @@ def trace_burst(srv, jobs, card: str) -> None:
             "profiler; device busy share not measured (the profiler "
             "recorded no device activity)")
         return
-    log(f"server trace: {len(jobs)} jobs in {wall:.3f} s under the profiler; "
+    log(f"server trace: {len(jobs)} jobs in {wall:.3f} s under the profiler "
+        f"({retried_evals(srv, evals)} retried after placement conflicts); "
         f"device busy {busy_s * 1e3:.3f} ms = {100.0 * busy_s / wall:.2f}% "
         f"of the burst, idle {100.0 - 100.0 * busy_s / wall:.2f}% "
         f"(card: {card})")
@@ -1400,6 +1534,456 @@ def phase_system_timing(m, card: str, results: dict) -> None:
         f"(card: {card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: batched scoring (the bench's kernel phase, on the port)
+# ---------------------------------------------------------------------------
+
+
+def stacked(reqs):
+    from nomad_tpu_torch.ops.encode import SchedRequest
+
+    return SchedRequest(*[np.stack(f) for f in zip(*reqs)])
+
+
+def score_args(arrays, inp):
+    return (arrays, arrays.used, inp["tg_counts"], inp["spread_counts"],
+            inp["penalties"], inp["req_i"], inp["req_f"], inp["class_eligs"],
+            inp["host_masks"])
+
+
+def score_plain_in_chunks(args, features):
+    """score_batch_plain over chunks of PLAIN_CHUNK lanes, stacked as the
+    (B, 7) packed output: its (B, N) and (B, N, V) intermediates are
+    gigabytes each at B=4096 in one piece."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    arrays, used, lane_args = args[0], args[1], args[2:]
+    b = lane_args[0].shape[0]
+    parts = []
+    for c in range(0, b, PLAIN_CHUNK):
+        sl = slice(c, c + PLAIN_CHUNK)
+        parts.append(k.pack_batch_result(k.score_batch_plain(
+            arrays, used, *[a[sl] for a in lane_args], features)))
+    return torch.cat(parts)
+
+
+def bench_requests(m, lanes: int):
+    """Lane i the bench's job shape i mod 8 (bench.py build_requests), and
+    the features widened over the eight shapes as bench.py does."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.ops.encode import RequestEncoder
+
+    enc = RequestEncoder(m)
+    shapes = [enc.compile(j, j.task_groups[0]).request for j, _ in bench_jobs()]
+    feats = k.features_of(shapes[0])
+    for sh in shapes[1:]:
+        feats = feats.widen(k.features_of(sh))
+    return [shapes[i % len(shapes)] for i in range(lanes)], feats
+
+
+def feature_score_inputs(m, device, lanes: int = FEATURE_LANES, seed: int = 21):
+    """The feature batch's shapes (preemption, ports, distinct_hosts, a
+    targeted spread, then the bench's eight) with per-lane operands that
+    are not trivial: tg counts, penalties, class eligibility with holes,
+    host masks (one lane masked out entirely) and spread tables holding
+    rack values with counts.  Returns (inputs on ``device``, stacked numpy
+    request)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.ops.encode import (
+        MAX_SPREAD_VALUES, MAX_SPREADS, RequestEncoder, pow2_bucket,
+    )
+    from nomad_tpu_torch.state.matrix import stable_hash
+
+    rng = np.random.default_rng(seed)
+    enc = RequestEncoder(m)
+    mix = feature_jobs() + bench_jobs()
+    reqs = stacked([
+        enc.compile(j, j.task_groups[0], preemption_enabled=pre).request
+        for j, pre in (mix[i % len(mix)] for i in range(lanes))])
+    n = m.capacity
+    s_hash = np.array(reqs.s_value_hash, copy=True)
+    counts = np.zeros((lanes, MAX_SPREADS, MAX_SPREAD_VALUES), np.float32)
+    for lane in range(lanes):
+        for s in range(MAX_SPREADS):
+            if reqs.s_slot[lane, s] < 0:
+                continue
+            for v in range(6):
+                if s_hash[lane, s, v] == 0:
+                    s_hash[lane, s, v] = stable_hash(f"r{v}")
+                counts[lane, s, v] = float(rng.integers(0, 5))
+    reqs = reqs._replace(s_value_hash=s_hash)
+    tg = np.zeros((lanes, n), np.int32)
+    tg[:, :N_NODES] = (rng.random((lanes, N_NODES)) < 0.02) * rng.integers(
+        1, 4, (lanes, N_NODES))
+    pen = rng.random((lanes, n)) < 0.05
+    k_cls = pow2_bucket(max(1, len(m.class_ids)))
+    ce = rng.random((lanes, k_cls)) < 0.85
+    ce[:, 0] = True
+    hm = rng.random((lanes, n)) < 0.9
+    hm[lanes - 1] = False
+    ri, rf = k.pack_requests(reqs)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    inp = dict(req_i=on(ri), req_f=on(rf), tg_counts=on(tg),
+               spread_counts=on(counts), penalties=on(pen),
+               class_eligs=on(ce), host_masks=on(hm))
+    return inp, reqs
+
+
+def check_score(label: str, got, want, results: dict) -> None:
+    from nomad_tpu_torch.ops import kernels as k
+
+    ok, err, msg = compare(got.cpu()[:, None], want.cpu()[:, None],
+                           k.PACKED_WIDTH)
+    r = results.setdefault("score_batch", {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    rows = got.cpu().numpy()[:, k.PACKED_ROW]
+    pre = int(got.cpu().numpy()[:, k.PACKED_PREEMPT].sum())
+    log(f"batched[{label}] score_batch vs plain: {msg} (max |err| {err:.3g}); "
+        f"{int((rows >= 0).sum())} of {len(rows)} lanes placed, "
+        f"{len(set(rows[rows >= 0].tolist()))} distinct rows, "
+        f"{pre} preempting")
+    if not ok:
+        raise AssertionError(f"score_batch disagrees on {label}: {msg}")
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_batched_scoring(m, card: str, results: dict) -> None:
+    """score_batch at the bench's shapes: parity with the plain version
+    (B=4096, B=256, the feature batch at B=64 and entry()), then the main
+    path with the counts zeroed around it (entry(), 100 sync dispatches
+    at B=4096 and at B=256, 100 pipelined dispatches at B=4096), then the
+    kernel's CUDA-event and profiler times, the plain version's time, the
+    bound and a traced window of sync dispatches."""
+    import torch
+
+    from nomad_tpu_torch.entry import entry
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.parallel import build_batch_inputs
+
+    arrays = m.sync("cuda")
+    big_reqs, feats = bench_requests(m, SCORE_BATCH)
+    big = build_batch_inputs(m, big_reqs, "cuda")
+    small = build_batch_inputs(m, big_reqs[:INTERACTIVE_BATCH], "cuda")
+    big_args, small_args = score_args(arrays, big), score_args(arrays, small)
+    log(f"batched: {SCORE_BATCH} and {INTERACTIVE_BATCH} lanes of the "
+        f"bench's eight shapes on {N_NODES} nodes (capacity "
+        f"{arrays.used.shape[0]}), features {tuple(feats)}")
+
+    # Parity (the plain version in chunks of PLAIN_CHUNK lanes).
+    for label, args, f in (
+        (f"bench B={SCORE_BATCH}", big_args, feats),
+        (f"bench B={INTERACTIVE_BATCH}", small_args, feats),
+    ):
+        got = k.pack_batch_result(k.score_batch(*args, f))
+        check_score(label, got, score_plain_in_chunks(args, f), results)
+    f_inp, f_reqs = feature_score_inputs(m, "cuda")
+    f_args = score_args(arrays, f_inp)
+    got = k.pack_batch_result(k.score_batch(*f_args, k.FULL_FEATURES))
+    check_score(f"features B={FEATURE_LANES} full", got,
+                score_plain_in_chunks(f_args, k.FULL_FEATURES), results)
+    rows = got.cpu().numpy()[:, k.PACKED_ROW]
+    if rows[-1] != -1 or not got.cpu().numpy()[:, k.PACKED_PREEMPT].any():
+        raise AssertionError("feature batch lost its masked lane or its "
+                             "preempting picks")
+    fn, e_args = entry()
+    if e_args[1].device.type != "cuda":
+        raise AssertionError("entry() did not take the card")
+    check_score("entry()", k.pack_batch_result(fn(*e_args)),
+                k.pack_batch_result(k.score_batch_plain(*e_args)), results)
+
+    # The main path: entry() and the bench's dispatch loops.
+    pinned = [torch.empty((SCORE_BATCH,), dtype=torch.int32, pin_memory=True)
+              for _ in range(PIPELINE_DEPTH)]
+
+    def sync_loop(args, label):
+        for _ in range(2):
+            k.score_batch(*args, feats).rows.cpu()
+        total, launch, fetch = [], [], []
+        for _ in range(DISPATCHES):
+            t0 = time.perf_counter()
+            res = k.score_batch(*args, feats)
+            t1 = time.perf_counter()
+            res.rows.cpu()
+            t2 = time.perf_counter()
+            total.append((t2 - t0) * 1e3)
+            launch.append((t1 - t0) * 1e3)
+            fetch.append((t2 - t1) * 1e3)
+        b = args[2].shape[0]
+        out = {"p50_ms": statistics.median(total), "p99_ms": pct(total, 99),
+               "launch_p50_ms": statistics.median(launch),
+               "fetch_p50_ms": statistics.median(fetch),
+               "evals_per_s": DISPATCHES * b / (sum(total) / 1e3)}
+        log(f"batched[sync {label}] {DISPATCHES} dispatches, each ending in "
+            f"a .cpu() of rows: p50 {out['p50_ms']:.4f} ms, p99 "
+            f"{out['p99_ms']:.4f} ms (launch p50 {out['launch_p50_ms']:.4f} "
+            f"ms, fetch p50 {out['fetch_p50_ms']:.4f} ms), "
+            f"{out['evals_per_s']:.1f} evals/s (card: {card})")
+        return out
+
+    def pipelined():
+        """PIPELINE_DEPTH dispatches in flight; each dispatch's rows copy
+        into its own pinned buffer right behind its kernel, and the host
+        reads the oldest as it drains."""
+        inflight = []
+        t0 = time.perf_counter()
+        for i in range(PIPE_DISPATCHES):
+            res = k.score_batch(*big_args, feats)
+            buf = pinned[i % PIPELINE_DEPTH]
+            buf.copy_(res.rows, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            inflight.append((ev, buf))
+            if len(inflight) >= PIPELINE_DEPTH:
+                ev0, buf0 = inflight.pop(0)
+                ev0.synchronize()
+                int(buf0[0])
+        for ev0, buf0 in inflight:
+            ev0.synchronize()
+            int(buf0[0])
+        secs = time.perf_counter() - t0
+        return PIPE_DISPATCHES * SCORE_BATCH / secs, secs
+
+    k.reset_counts()
+    fn(*e_args).rows.cpu()
+    sync_big = sync_loop(big_args, f"B={SCORE_BATCH}")
+    sync_small = sync_loop(small_args, f"B={INTERACTIVE_BATCH}")
+    pipe_rate, pipe_s = pipelined()
+    launches = k.score_batch.launches
+    plain_calls = k.score_batch_plain.calls
+    made = 1 + 2 * (2 + DISPATCHES) + PIPE_DISPATCHES
+    log(f"batched[pipelined B={SCORE_BATCH}] depth {PIPELINE_DEPTH}, "
+        f"{PIPE_DISPATCHES} dispatches in {pipe_s:.4f} s = {pipe_rate:.1f} "
+        f"evals/s (card: {card})")
+    log(f"batched: launches during the main path {launches} for {made} "
+        f"dispatches, plain version {plain_calls} calls")
+    if launches != made or plain_calls != 0:
+        raise AssertionError(f"score_batch launched {launches} times for "
+                             f"{made} dispatches, plain {plain_calls}")
+
+    # Times of the kernel alone, the plain version, the bound.
+    r = results["score_batch"]
+    timing = {}
+    for label, args in ((SCORE_BATCH, big_args), (INTERACTIVE_BATCH, small_args)):
+        ms = time_cuda(lambda: k.score_batch(*args, feats), runs=20)
+        dev_us = device_us_per_launch(lambda: k.score_batch(*args, feats),
+                                      "score_batch_kernel")
+        timing[label] = (ms, dev_us)
+    packed = k.pack_batch_result(k.score_batch(*big_args, feats))
+    plain_ms = time_cuda(lambda: score_plain_in_chunks(big_args, feats),
+                         runs=3, warmup=1)
+    work = score_batch_work(arrays, stacked(big_reqs), feats, big_args, packed)
+    b_ms, by = bound(*work)
+    ms, dev_us = timing[SCORE_BATCH]
+    r.update(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=by, library_ms=None, device_us=dev_us,
+             matches_plain=True)
+    results["batched"] = {
+        "sync_4096": sync_big, "sync_256": sync_small,
+        "pipelined_evals_per_s": pipe_rate,
+        "ms_256": timing[INTERACTIVE_BATCH][0],
+        "device_us_256": timing[INTERACTIVE_BATCH][1],
+    }
+    for label, (t_ms, t_us) in timing.items():
+        log(f"timing score_batch B={label}: {t_ms:.4f} ms by CUDA events, "
+            f"{t_us:.3f} us a launch on the device (profiler) (card: {card})")
+    log(f"timing score_batch B={SCORE_BATCH}: plain version {plain_ms:.3f} ms "
+        f"(chunks of {PLAIN_CHUNK} lanes); bound {b_ms:.5f} ms by {by}; "
+        f"{work[0]} bytes, {work[1]:.4g} ops (card: {card})")
+    trace_sync(big_args, feats, card)
+
+
+def trace_sync(args, feats, card: str, n: int = 20) -> None:
+    """``n`` sync dispatches at B=4096 under the CUDA profiler: the card's
+    busy share of the window's wall time, and device time by activity
+    (the kernel, the result conversions, the device-to-host copy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    k.score_batch(*args, feats).rows.cpu()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            k.score_batch(*args, feats).rows.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    if not rows:
+        log(f"batched trace: {n} sync dispatches in {wall:.4f} s; device busy "
+            "share not measured (the profiler recorded no device activity)")
+        return
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    log(f"batched trace: {n} sync dispatches at B={SCORE_BATCH} in "
+        f"{wall * 1e3:.3f} ms under the profiler; device busy "
+        f"{busy_s * 1e3:.3f} ms = {100.0 * busy_s / wall:.2f}%, idle "
+        f"{100.0 - 100.0 * busy_s / wall:.2f}% (card: {card})")
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"  device {us / 1e3:9.3f} ms  x{count:<5d} {key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the plan verify
+# ---------------------------------------------------------------------------
+
+
+class HostVerifyRecorder:
+    """Wraps the applier's ``host_verify`` (server/plan_apply.py) and, while
+    ``armed``, keeps each call's inputs, the host mirror's used, totals and
+    eligible columns it read, and its verdicts."""
+
+    def __init__(self):
+        from nomad_tpu_torch.server import plan_apply
+
+        self.module = plan_apply
+        self.real = plan_apply.host_verify
+        self.armed = False
+        self.calls = []
+        plan_apply.host_verify = self
+
+    def __call__(self, host, rows, deltas, elig_required):
+        out = self.real(host, rows, deltas, elig_required)
+        if self.armed:
+            self.calls.append(dict(
+                used=np.array(host["used"]), totals=np.array(host["totals"]),
+                eligible=np.array(host["eligible"]),
+                rows=np.asarray(rows, np.int32), deltas=np.stack(deltas),
+                elig_required=np.asarray(elig_required, bool), verdicts=out))
+        return out
+
+    def close(self) -> None:
+        self.module.host_verify = self.real
+
+
+def plan_verify_cases(m, recorder):
+    """(label, host columns, rows, deltas, elig_required, applier verdicts
+    or None): (a) a seeded plan of K=10,000 rows on the phase-2 cluster
+    (padding, deltas past the node's room, negative deltas, ineligible
+    nodes, a mixed elig_required), (b) each plan check the applier made
+    for node-exporter in the system phase."""
+    rng = np.random.default_rng(31)
+    host = m.snapshot_host()
+    cols = {"used": np.array(host["used"]), "totals": np.array(host["totals"]),
+            "eligible": np.array(host["eligible"])}
+    off = rng.choice(N_NODES, 300, replace=False)
+    cols["eligible"][off] = False
+    k_rows = VERIFY_ROWS
+    rows = rng.integers(0, N_NODES, k_rows).astype(np.int32)
+    rows[rng.random(k_rows) < 0.05] = -1
+    safe = np.maximum(rows, 0)
+    room = cols["totals"][safe] - cols["used"][safe]
+    deltas = (room * rng.uniform(0.3, 1.3, (k_rows, 3))).astype(np.float32)
+    deltas[rng.random(k_rows) < 0.05] *= -1.0
+    exact = rng.random(k_rows) < 0.02
+    deltas[exact] = room[exact]
+    elig_required = rng.random(k_rows) < 0.6
+    cases = [("seeded", cols, rows, deltas, elig_required, None)]
+    for i, c in enumerate(recorder.calls):
+        cases.append((f"node-exporter plan {i}",
+                      {f: c[f] for f in ("used", "totals", "eligible")},
+                      c["rows"], c["deltas"], c["elig_required"],
+                      c["verdicts"]))
+    return cases
+
+
+def verify_plan_fit_work(cols, rows):
+    """(bytes, float32 ops): each row's index, delta, elig_required and
+    verdict byte, and the used, totals and eligible byte of each distinct
+    node a live row names, once; three adds and three compares a live
+    row."""
+    live = rows[rows >= 0]
+    nbytes = len(rows) * (4 + 12 + 1 + 1) + len(np.unique(live)) * (12 + 12 + 1)
+    return nbytes, 6 * len(live)
+
+
+def phase_plan_verify(card: str, m, recorder, results: dict) -> None:
+    """verify_plan_fit on the seeded plan and on the applier's recorded
+    node-exporter plans, with the counts zeroed around those calls; then
+    against its plain version and the applier's host_verify, every row;
+    then its times at K=10,000."""
+    import types
+
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.plan_apply import host_verify
+
+    cases = plan_verify_cases(m, recorder)
+    if len(cases) < 2:
+        raise AssertionError("no node-exporter plan check was recorded")
+    on = {}
+    for label, cols, rows, deltas, er, _ in cases:
+        arrays = types.SimpleNamespace(**{
+            f: torch.from_numpy(v).to("cuda") for f, v in cols.items()})
+        on[label] = (arrays, torch.from_numpy(rows).to("cuda"),
+                     torch.from_numpy(deltas).to("cuda"),
+                     torch.from_numpy(er).to("cuda"))
+    k.reset_counts()
+    got = {label: k.verify_plan_fit(*on[label]) for label, *_ in cases}
+    torch.cuda.synchronize()
+    launches = k.verify_plan_fit.launches
+    plain_calls = k.verify_plan_fit_plain.calls
+    if launches != len(cases) or plain_calls:
+        raise AssertionError(f"verify_plan_fit launched {launches} times for "
+                             f"{len(cases)} plans, plain {plain_calls}")
+    err = 0.0
+    for label, cols, rows, deltas, er, applier in cases:
+        g = got[label]
+        raw = g.view(torch.uint8).cpu()
+        g = g.cpu().numpy()
+        plain = k.verify_plan_fit_plain(*on[label]).cpu().numpy()
+        hv = host_verify(cols, rows, list(deltas), er)
+        diff = int((g != plain).sum()) + int((g != hv).sum())
+        if applier is not None:
+            diff += int((g != applier).sum())
+        err = max(err, float(np.abs(g.astype(np.int32)
+                                    - plain.astype(np.int32)).max()))
+        log(f"verify[{label}] verify_plan_fit vs plain vs host_verify"
+            f"{' vs the applier' if applier is not None else ''}: {diff} rows "
+            f"differ of {len(rows)}; {int((rows < 0).sum())} padding, "
+            f"{int((~g).sum())} refused")
+        if int(raw.max()) > 1:
+            raise AssertionError(f"verify {label}: an output byte is not 0/1")
+        if diff:
+            raise AssertionError(f"verify_plan_fit disagrees on {label}")
+        if label == "seeded" and (g.all() or not g.any()):
+            raise AssertionError("the seeded plan refused nothing or all")
+
+    label, cols, rows, *_ = cases[0]
+    args = on[label]
+    ms = time_cuda(lambda: k.verify_plan_fit(*args), runs=20)
+    dev_us = device_us_per_launch(lambda: k.verify_plan_fit(*args),
+                                  "verify_plan_fit_kernel")
+    plain_ms = time_cuda(lambda: k.verify_plan_fit_plain(*args), runs=20)
+    work = verify_plan_fit_work(cols, rows)
+    b_ms, by = bound(*work)
+    results["verify_plan_fit"] = {
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None, "device_us": dev_us, "matches_plain": True,
+    }
+    log(f"timing verify_plan_fit K={len(rows)}: {ms:.4f} ms by CUDA events, "
+        f"{dev_us:.3f} us a launch on the device (profiler); plain version "
+        f"{plain_ms:.3f} ms; bound {b_ms:.6f} ms by {by}; {work[0]} bytes, "
+        f"{work[1]} ops (card: {card})")
+
+
 def main() -> int:
     import torch
 
@@ -1430,9 +2014,17 @@ def main() -> int:
     phase_kernels(batches, results)
     phase_solo(batches[1], results)
     phase_system_kernel(m, results)
-    phase_server(card, results)
+    recorder = HostVerifyRecorder()
+    try:
+        phase_server(card, results, recorder)
+    finally:
+        recorder.close()
     phase_timing(batches[0], card, results)
     phase_system_timing(m, card, results)
+    # A fresh bench-shaped cluster: phase 2 left three rows nearly full.
+    phase_batched_scoring(build_cluster(N_NODES, CAPACITY, "cuda"), card,
+                          results)
+    phase_plan_verify(card, m, recorder, results)
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",
@@ -1441,6 +2033,10 @@ def main() -> int:
                               "nomad_tpu/ops/kernels.py:1026"),
         "system_feasible": ("nomad_tpu_torch/ops/csrc/system_feasible.cu",
                             "nomad_tpu/ops/kernels.py:289"),
+        "score_batch": ("nomad_tpu_torch/ops/csrc/score_batch.cu",
+                        "nomad_tpu/ops/kernels.py:627"),
+        "verify_plan_fit": ("nomad_tpu_torch/ops/csrc/verify_plan_fit.cu",
+                            "nomad_tpu/ops/kernels.py:1077"),
     }
     table = []
     for name, (src, replaces) in sources.items():

@@ -27,7 +27,8 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("fused_place", "allocs_fit_verify", "system_feasible")
+KERNELS = ("fused_place", "allocs_fit_verify", "system_feasible",
+           "score_batch", "verify_plan_fit")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -109,11 +110,15 @@ _ARGTYPES = {
     "nomad_fused_place": [_PTR] * 24 + [_INT] * 12 + [_PTR],
     "nomad_allocs_fit_verify": [_PTR] * 9 + [_INT] * 4 + [_PTR],
     "nomad_system_feasible": [_PTR] * 16 + [_INT] * 4 + [_PTR],
+    "nomad_score_batch": [_PTR] * 20 + [_INT] * 10 + [_PTR],
+    "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
 }
 _ENTRY = {
     "fused_place": "nomad_fused_place",
     "allocs_fit_verify": "nomad_allocs_fit_verify",
     "system_feasible": "nomad_system_feasible",
+    "score_batch": "nomad_score_batch",
+    "verify_plan_fit": "nomad_verify_plan_fit",
 }
 
 

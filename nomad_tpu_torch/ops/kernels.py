@@ -19,8 +19,9 @@ tensors (:func:`pack_requests`), the layout the CUDA kernels read.  The
 a loop inside one thread block on the card (``csrc/fused_place.cu``).
 
 On a CPU tensor the wrappers :func:`fused_place`,
-:func:`allocs_fit_verify` and :func:`system_feasible` run the plain
-version; on a CUDA tensor they launch the hand-written kernel or raise.
+:func:`allocs_fit_verify`, :func:`system_feasible`, :func:`score_batch`
+and :func:`verify_plan_fit` run the plain version; on a CUDA tensor they
+launch the hand-written kernel or raise.
 Sums over the small slot axes are written as ordered loops so the plain
 version, the kernel and XLA add in the same order.
 """
@@ -656,6 +657,38 @@ FUSED_PACKED_VERIFIED = 7
 FUSED_PACKED_WIDTH = 8
 
 
+def _pick(res: ScoreResult, eligible, live=None):
+    """Each lane's pick from its scores (the reference's
+    ``_score_and_pick``): the first maximum of ``final`` (lowest row on
+    ties, as ``jnp.argmax``), and the packed (B, PACKED_WIDTH) row: row -1
+    and zero score, binpack and preemption where nothing fits, the three
+    node counters over every row.  Lanes outside ``live`` read row -1 and
+    zeros.  Returns (packed, row, ok)."""
+    f32 = torch.float32
+    row = torch.argmax(res.final, dim=1)
+    best = res.final.gather(1, row[:, None])[:, 0]
+    ok = best > NEG_INF / 2
+    if live is not None:
+        ok = ok & live
+    counts = torch.stack([
+        res.feasible.sum(dim=1),
+        (~res.feasible & eligible[None]).sum(dim=1),
+        (res.feasible & ~res.fits).sum(dim=1),
+    ], dim=1).to(f32)
+    if live is not None:
+        counts = torch.where(live[:, None], counts, 0.0)
+    packed = torch.cat([
+        torch.stack([
+            torch.where(ok, row.to(f32), -1.0),
+            torch.where(ok, best, 0.0),
+            torch.where(ok, res.binpack.gather(1, row[:, None])[:, 0], 0.0),
+            (ok & res.needs_preempt.gather(1, row[:, None])[:, 0]).to(f32),
+        ], dim=1),
+        counts,
+    ], dim=1)
+    return packed, row, ok
+
+
 def lane_base_usage(used, delta_rows, delta_vals):
     """(B, N, 3) — each lane's base usage: ``used`` plus its ≤ D sparse
     in-flight deltas (row -1 = padding).  Duplicate rows sum, in delta
@@ -690,9 +723,8 @@ def place_lanes(arrays: DeviceArrays, used, delta_rows, delta_vals,
     req = unpack_requests(req_i, req_f)
     b = req_i.shape[0]
     dev = used.device
-    out = torch.zeros((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
+    out = torch.empty((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
-    out[:, :, PACKED_ROW] = -1.0
     u = lane_base_usage(used, delta_rows, delta_vals)
     tg = tg_counts.to(torch.int32).clone()
     s_hash = req.s_value_hash.clone()
@@ -701,26 +733,7 @@ def place_lanes(arrays: DeviceArrays, used, delta_rows, delta_vals,
     live = lane_mask.clone()
     for step in range(n_placements):
         res = _score_step(arrays, req, sp, u, tg, s_hash, s_counts, features)
-        row = torch.argmax(res.final, dim=1)  # first maximum: lowest row
-        best = res.final.gather(1, row[:, None])[:, 0]
-        ok = (best > NEG_INF / 2) & live
-        f32 = torch.float32
-        out[:, step, PACKED_ROW] = torch.where(ok, row.to(f32), -1.0)
-        out[:, step, PACKED_SCORE] = torch.where(ok, best, 0.0)
-        out[:, step, PACKED_BINPACK] = torch.where(
-            ok, res.binpack.gather(1, row[:, None])[:, 0], 0.0
-        )
-        out[:, step, PACKED_PREEMPT] = (
-            ok & res.needs_preempt.gather(1, row[:, None])[:, 0]
-        ).to(f32)
-        counts = torch.stack([
-            res.feasible.sum(dim=1),
-            (~res.feasible & arrays.eligible[None]).sum(dim=1),
-            (res.feasible & ~res.fits).sum(dim=1),
-        ], dim=1).to(f32)
-        out[:, step, PACKED_EVALUATED:PACKED_WIDTH] = torch.where(
-            live[:, None], counts, 0.0
-        )
+        out[:, step], row, ok = _pick(res, arrays.eligible, live)
         # Carry update on the winning row of each placing lane.
         for lane in torch.nonzero(ok).flatten().tolist():
             r = int(row[lane])
@@ -983,15 +996,188 @@ def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
 system_feasible.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Batched independent evals and the plan verify
+# ---------------------------------------------------------------------------
+
+
+class BatchScoreResult(NamedTuple):
+    rows: torch.Tensor  # (B,) i32 argmax node row, -1 = no fit
+    scores: torch.Tensor  # (B,) f32
+    binpack: torch.Tensor  # (B,) f32
+    preempted: torch.Tensor  # (B,) bool
+    nodes_evaluated: torch.Tensor  # (B,) i32
+    nodes_filtered: torch.Tensor  # (B,) i32
+    nodes_exhausted: torch.Tensor  # (B,) i32
+
+
+def _batch_result(packed) -> BatchScoreResult:
+    """The (B, PACKED_WIDTH) output as a :class:`BatchScoreResult`:
+    scores and binpack are views of it, rows and counters int32."""
+    counters = packed[:, PACKED_EVALUATED:PACKED_WIDTH].to(torch.int32)
+    return BatchScoreResult(
+        rows=packed[:, PACKED_ROW].to(torch.int32),
+        scores=packed[:, PACKED_SCORE],
+        binpack=packed[:, PACKED_BINPACK],
+        preempted=packed[:, PACKED_PREEMPT] != 0.0,
+        nodes_evaluated=counters[:, 0],
+        nodes_filtered=counters[:, 1],
+        nodes_exhausted=counters[:, 2],
+    )
+
+
+def pack_batch_result(res: BatchScoreResult) -> torch.Tensor:
+    """A :class:`BatchScoreResult` back as the (B, PACKED_WIDTH) float32
+    the kernel writes (for comparisons)."""
+    f32 = torch.float32
+    return torch.stack([
+        res.rows.to(f32), res.scores, res.binpack, res.preempted.to(f32),
+        res.nodes_evaluated.to(f32), res.nodes_filtered.to(f32),
+        res.nodes_exhausted.to(f32),
+    ], dim=1)
+
+
+def score_batch_plain(arrays: DeviceArrays, used, tg_counts, spread_counts,
+                      penalties, req_i, req_f, class_eligs, host_masks,
+                      features: Features = FULL_FEATURES) -> BatchScoreResult:
+    """Plain version of the ``score_batch`` kernel: :func:`score_nodes`
+    for B lanes against the shared (N, 3) ``used``, then each lane's pick
+    (the reference's ``_score_and_pick``).  Its intermediates are (B, N)
+    and (B, N, V): split a large batch into chunks of lanes."""
+    score_batch_plain.calls += 1
+    b = req_i.shape[0]
+    res = score_nodes(arrays, used[None].expand(b, -1, -1), tg_counts,
+                      spread_counts, penalties, req_i, req_f, class_eligs,
+                      host_masks, features)
+    packed, _, _ = _pick(res, arrays.eligible)
+    return _batch_result(packed)
+
+
+score_batch_plain.calls = 0
+
+
+def score_batch(arrays: DeviceArrays, used, tg_counts, spread_counts,
+                penalties, req_i, req_f, class_eligs, host_masks,
+                features: Features = FULL_FEATURES) -> BatchScoreResult:
+    """B independent evaluations in one launch: every node scored for each
+    lane against the shared ``used``, then each lane's argmax (JAX
+    ``score_batch``) — the ``score_batch`` kernel
+    (``csrc/score_batch.cu``) on the card, :func:`score_batch_plain` on
+    the CPU.  ``tg_counts``/``penalties``/``host_masks`` are (B, N),
+    ``spread_counts`` (B, S, V), ``class_eligs`` (B, K), the requests
+    packed (:func:`pack_requests`)."""
+    if used.device.type == "cpu":
+        return score_batch_plain(arrays, used, tg_counts, spread_counts,
+                                 penalties, req_i, req_f, class_eligs,
+                                 host_masks, features)
+    if used.device.type != "cuda":
+        raise ValueError(f"score_batch: unsupported device {used.device}")
+    dev = used.device
+    n = _check_matrix(arrays, used, dev)
+    b, k = class_eligs.shape
+    _check("tg_counts", tg_counts, torch.int32, (b, n), dev)
+    _check("spread_counts", spread_counts, torch.float32,
+           (b, MAX_SPREADS, MAX_SPREAD_VALUES), dev)
+    _check("penalties", penalties, torch.bool, (b, n), dev)
+    _check("req_i", req_i, torch.int32, (b, REQ_INT_WIDTH), dev)
+    _check("req_f", req_f, torch.float32, (b, REQ_FLOAT_WIDTH), dev)
+    _check("class_eligs", class_eligs, torch.bool, (b, k), dev)
+    _check("host_masks", host_masks, torch.bool, (b, n), dev)
+    from .build import load_library
+
+    lib = load_library("score_batch")
+    out = torch.empty((b, PACKED_WIDTH), dtype=torch.float32, device=dev)
+    rc = lib.nomad_score_batch(
+        _ptr(arrays.totals), _ptr(used), _ptr(arrays.eligible),
+        _ptr(arrays.attr_hash), _ptr(arrays.attr_num), _ptr(arrays.attr_ver),
+        _ptr(arrays.class_id), _ptr(arrays.dev_total), _ptr(arrays.dev_used),
+        _ptr(arrays.prio_used), _ptr(arrays.port_words), _ptr(arrays.dyn_used),
+        _ptr(tg_counts), _ptr(spread_counts), _ptr(penalties), _ptr(req_i),
+        _ptr(req_f), _ptr(class_eligs), _ptr(host_masks), _ptr(out),
+        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, k,
+        features.c_width, features.a_width, features.s_width,
+        int(features.preempt), int(features.ports),
+        _stream(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"score_batch launch failed: CUDA error {rc}")
+    score_batch.launches += 1
+    return _batch_result(out)
+
+
+score_batch.launches = 0
+
+
+def verify_plan_fit_plain(arrays, rows, deltas, eligible_required):
+    """Plain version of the ``verify_plan_fit`` kernel: per plan row,
+    ``used[r] + delta <= totals[r]`` on all three dimensions and the node
+    eligible where ``eligible_required``, with ``r = max(row, 0)``
+    (clamped to the matrix, as JAX's gather is); True on padding rows
+    (``row < 0``).  Returns (K,) bool."""
+    verify_plan_fit_plain.calls += 1
+    n = arrays.used.shape[0]
+    safe = rows.clamp(0, n - 1).long()
+    fits = (arrays.used[safe] + deltas <= arrays.totals[safe]).all(dim=1)
+    ok = fits & (~eligible_required | arrays.eligible[safe])
+    return torch.where(rows < 0, True, ok)
+
+
+verify_plan_fit_plain.calls = 0
+
+
+def verify_plan_fit(arrays, rows, deltas, eligible_required):
+    """The plan applier's AllocsFit re-check of K plan rows against the
+    matrix (JAX ``verify_plan_fit``) — the ``verify_plan_fit`` kernel
+    (``csrc/verify_plan_fit.cu``) on the card,
+    :func:`verify_plan_fit_plain` on the CPU.  ``arrays`` needs ``used``
+    and ``totals`` (N, 3) f32 and ``eligible`` (N,) bool; ``rows`` (K,)
+    int32 (-1 padding), ``deltas`` (K, 3) f32, ``eligible_required`` (K,)
+    bool.  Returns (K,) bool."""
+    dev = arrays.used.device
+    if dev.type == "cpu":
+        return verify_plan_fit_plain(arrays, rows, deltas, eligible_required)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_plan_fit: unsupported device {dev}")
+    n, k = arrays.used.shape[0], rows.shape[0]
+    _check("used", arrays.used, torch.float32, (n, 3), dev)
+    _check("totals", arrays.totals, torch.float32, (n, 3), dev)
+    _check("eligible", arrays.eligible, torch.bool, (n,), dev)
+    _check("rows", rows, torch.int32, (k,), dev)
+    _check("deltas", deltas, torch.float32, (k, 3), dev)
+    _check("eligible_required", eligible_required, torch.bool, (k,), dev)
+    if k == 0:
+        return torch.ones((0,), dtype=torch.bool, device=dev)
+    from .build import load_library
+
+    lib = load_library("verify_plan_fit")
+    out = torch.empty((k,), dtype=torch.bool, device=dev)
+    rc = lib.nomad_verify_plan_fit(
+        _ptr(arrays.used), _ptr(arrays.totals), _ptr(arrays.eligible),
+        _ptr(rows), _ptr(deltas), _ptr(eligible_required), _ptr(out),
+        k, n, _stream(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"verify_plan_fit launch failed: CUDA error {rc}")
+    verify_plan_fit.launches += 1
+    return out
+
+
+verify_plan_fit.launches = 0
+
+
 def reset_counts() -> None:
     """Zero every launch and call count (the smoke reads them around the
     main path)."""
     fused_place.launches = 0
     allocs_fit_verify.launches = 0
     system_feasible.launches = 0
+    score_batch.launches = 0
+    verify_plan_fit.launches = 0
     place_lanes.calls = 0
     verify_lanes.calls = 0
     system_feasible_plain.calls = 0
+    score_batch_plain.calls = 0
+    verify_plan_fit_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,17 @@ BLOCKED_EVAL_MAX_PLAN_DESC = "created due to placement conflicts"
 BLOCKED_EVAL_FAILED_PLACEMENTS = "created to place remaining allocations"
 
 
+def progress_made(result) -> bool:
+    """The plan result committed something: allocations, stops or a
+    deployment change (the reference's progressMade, generic_sched.go)."""
+    return result is not None and (
+        any(result.node_allocation.values())
+        or any(result.node_update.values())
+        or result.deployment is not None
+        or bool(result.deployment_updates)
+    )
+
+
 class SchedulerError(Exception):
     pass
 
@@ -72,21 +83,35 @@ class GenericScheduler:
 
     def process(self, eval: Evaluation) -> None:
         ok = False
-        for attempt in range(self.limit):
+        attempts = 0
+        while attempts < self.limit:
             ok, retry = self._attempt(eval)
             if ok or not retry:
                 break
             # stale snapshot: refresh and try again (worker re-snapshot,
-            # generic_sched.go:161-173)
+            # generic_sched.go:161-173).  A partial commit that made
+            # progress starts the count again, as the reference's
+            # retryMax(limit, process, progress) does (generic_sched.go
+            # Process): only rounds that commit nothing use up attempts.
             self.snapshot = self.planner.refresh_snapshot()
+            attempts = 0 if self._progress else attempts + 1
         if not ok and not self._no_work:
-            self._fail_eval(eval, "maximum attempts reached")
+            # No round of the last `limit` committed anything: fail the
+            # eval and leave a blocked one that retries the job
+            # (generic_sched.go Process → createBlockedEval(true)).  The
+            # server re-enqueues it on a capacity change of its classes or
+            # after failed_eval_unblock_interval (blocked_evals.go
+            # UnblockFailed).
+            blocked = self._blocked_eval(eval, plan_failure=True)
+            self.planner.create_evals([blocked])
+            self._fail_eval(eval, "maximum attempts reached", blocked.id)
             return
         self._finish_eval(eval)
 
     # ------------------------------------------------------------------
 
     _no_work = False
+    _progress = False
 
     def _attempt(self, eval: Evaluation):
         """Returns (success, retry)."""
@@ -173,6 +198,7 @@ class GenericScheduler:
         self._no_work = False
 
         result, new_snapshot = self.planner.submit_plan(plan)
+        self._progress = progress_made(result)
         if result is None:
             return False, True
 
@@ -349,33 +375,50 @@ class GenericScheduler:
         if self.failed_tg_allocs and eval.triggered_by != (
             EvalTrigger.MAX_PLAN_ATTEMPTS.value
         ):
-            stack = getattr(self, "_stack", None)
-            blocked = Evaluation(
-                namespace=eval.namespace,
-                priority=eval.priority,
-                type=eval.type,
-                triggered_by=EvalTrigger.QUEUED_ALLOCS.value,
-                job_id=eval.job_id,
-                status=EvalStatus.BLOCKED.value,
-                status_description=BLOCKED_EVAL_FAILED_PLACEMENTS,
-                previous_eval=eval.id,
-                # Unblock keying (blocked_evals.go): which classes we saw
-                # (in)eligible at this snapshot, and whether class caching
-                # escaped to per-node checks.
-                snapshot_index=self.snapshot.snapshot_index,
-                class_eligibility=dict(stack.class_eligibility) if stack else {},
-                escaped_computed_class=(
-                    stack.escaped_computed_class if stack else True
-                ),
-            )
+            blocked = self._blocked_eval(eval, plan_failure=False)
             updated.blocked_eval = blocked.id
             self.planner.create_evals([blocked])
         self.planner.update_eval(updated)
 
-    def _fail_eval(self, eval: Evaluation, reason: str) -> None:
+    def _blocked_eval(self, eval: Evaluation, plan_failure: bool) -> Evaluation:
+        """The blocked eval that retries ``eval``'s job (generic_sched.go
+        createBlockedEval): after placement conflicts (``plan_failure``) or
+        for placements that found no room."""
+        stack = getattr(self, "_stack", None)
+        return Evaluation(
+            namespace=eval.namespace,
+            priority=eval.priority,
+            type=eval.type,
+            triggered_by=(
+                EvalTrigger.MAX_PLAN_ATTEMPTS.value
+                if plan_failure
+                else EvalTrigger.QUEUED_ALLOCS.value
+            ),
+            job_id=eval.job_id,
+            status=EvalStatus.BLOCKED.value,
+            status_description=(
+                BLOCKED_EVAL_MAX_PLAN_DESC
+                if plan_failure
+                else BLOCKED_EVAL_FAILED_PLACEMENTS
+            ),
+            previous_eval=eval.id,
+            # Unblock keying (blocked_evals.go): which classes we saw
+            # (in)eligible at this snapshot, and whether class caching
+            # escaped to per-node checks.
+            snapshot_index=self.snapshot.snapshot_index,
+            class_eligibility=dict(stack.class_eligibility) if stack else {},
+            escaped_computed_class=(
+                stack.escaped_computed_class if stack else True
+            ),
+        )
+
+    def _fail_eval(
+        self, eval: Evaluation, reason: str, blocked_eval: str = ""
+    ) -> None:
         updated = eval.copy()
         updated.status = EvalStatus.FAILED.value
         updated.status_description = reason
+        updated.blocked_eval = blocked_eval
         self.planner.update_eval(updated)
 
 

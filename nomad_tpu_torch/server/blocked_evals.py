@@ -25,7 +25,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from .. import trace
-from ..structs.types import EvalStatus, Evaluation
+from ..structs.types import EvalStatus, EvalTrigger, Evaluation
 
 
 class _DeficitRoundRobin:
@@ -210,6 +210,20 @@ class BlockedEvals:
             for ev in unblock:
                 self._captured.pop(ev.id, None)
                 self._escaped.pop(ev.id, None)
+            self._enqueue_unblocked_locked(unblock)
+
+    def unblock_failed(self) -> None:
+        """Re-enqueue every eval blocked after placement conflicts
+        (blocked_evals.go UnblockFailed): its job had room, it lost the
+        race for it."""
+        with self._lock:
+            if not self._enabled:
+                return
+            unblock = []
+            for pool in (self._captured, self._escaped):
+                for eid, ev in list(pool.items()):
+                    if ev.triggered_by == EvalTrigger.MAX_PLAN_ATTEMPTS.value:
+                        unblock.append(pool.pop(eid))
             self._enqueue_unblocked_locked(unblock)
 
     def _enqueue_unblocked_locked(self, evals: List[Evaluation]) -> None:

@@ -3,9 +3,10 @@ scheduling path.
 
 Reference: ``nomad/server.go`` (Server struct :95-257).  Wired here: the
 state store and the card-resident node matrix, the dispatch coalescer,
-the eval broker, blocked evals, the plan queue with its serialized
-applier, N scheduling workers, the heartbeat TTL wheel and the node
-drainer, and the node RPCs that feed them.  Every mutation funnels
+the eval broker, blocked evals with the periodic retry of those blocked
+after placement conflicts, the plan queue with its serialized applier, N
+scheduling workers, the heartbeat TTL wheel and the node drainer, and the
+node RPCs that feed them.  Every mutation funnels
 through the ``apply_*`` methods with a monotonically assigned index.
 
 The deployment watcher, the periodic dispatcher, the load gate, overload
@@ -67,6 +68,9 @@ class ServerConfig:
     # Overlapping dispatches the coalescer keeps in flight.  None = env
     # NOMAD_TPU_PIPELINE_DEPTH, default 8.
     pipeline_depth: Optional[int] = None
+    # Seconds between retries of the evals blocked after placement
+    # conflicts (leader.go failedEvalUnblockInterval).
+    failed_eval_unblock_interval: float = 60.0
     scheduler_config: SchedulerConfiguration = field(
         default_factory=SchedulerConfiguration
     )
@@ -121,6 +125,8 @@ class Server:
         self._index_lock = threading.Lock()
         self._index = 0
         self._leader = False
+        self._unblock_stop = threading.Event()
+        self._unblocker: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
 
@@ -160,9 +166,26 @@ class Server:
             if node.status != NodeStatus.DOWN.value:
                 self.heartbeater.reset_heartbeat(node.id)
         self.drainer.start()
+        self._unblock_stop.clear()
+        self._unblocker = threading.Thread(
+            target=self._periodic_unblock_failed, name="unblock-failed",
+            daemon=True,
+        )
+        self._unblocker.start()
+
+    def _periodic_unblock_failed(self) -> None:
+        """Retry the evals blocked after placement conflicts
+        (leader.go periodicUnblockFailedEvals)."""
+        while not self._unblock_stop.wait(
+            self.config.failed_eval_unblock_interval
+        ):
+            self.blocked_evals.unblock_failed()
 
     def shutdown(self) -> None:
         self._leader = False
+        self._unblock_stop.set()
+        if self._unblocker is not None:
+            self._unblocker.join()
         self.drainer.stop()
         for w in self.workers:
             w.stop()

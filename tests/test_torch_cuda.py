@@ -334,3 +334,92 @@ def test_system_server_on_card_places_like_cpu(cuda):
     on_card = drive(cuda)
     assert k.system_feasible.launches >= before + 6
     assert on_card == drive("cpu")
+
+
+def score_batch_args(m, reqs, dev, lanes=24, seed=6):
+    """Per-lane operands that are not trivial: tg counts, penalties, class
+    eligibility, host masks (one lane masked out), spread counts."""
+    rng = np.random.default_rng(seed)
+    arrays = m.sync()
+    n = arrays.used.shape[0]
+    reqs = [reqs[i % len(reqs)] for i in range(lanes)]
+    stacked = type(reqs[0])(*[np.stack(f) for f in zip(*reqs)])
+    ri, rf = k.pack_requests(stacked)
+    tg = np.zeros((lanes, n), np.int32)
+    tg[:, 10:40] = rng.integers(0, 3, (lanes, 30))
+    pen = rng.random((lanes, n)) < 0.1
+    ce = np.ones((lanes, 8), bool)
+    ce[3, 1] = False
+    hm = rng.random((lanes, n)) < 0.9
+    hm[5] = False
+    sc = rng.integers(0, 4, (lanes, MAX_SPREADS, MAX_SPREAD_VALUES))
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    args = (arrays, arrays.used, on(tg), on(sc.astype(np.float32)), on(pen),
+            on(ri), on(rf), on(ce), on(hm))
+    return args, k.features_of(stacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_score_batch_matches_plain(cuda, full):
+    m = cluster(cuda)
+    args, feats = score_batch_args(m, requests(m), cuda)
+    if full:
+        feats = k.FULL_FEATURES
+    before = k.score_batch.launches
+    got = k.score_batch(*args, feats)
+    want = k.score_batch_plain(*args, feats)
+    assert k.score_batch.launches == before + 1
+    assert got.rows.dtype == torch.int32 and got.preempted.dtype == torch.bool
+    assert_same(k.pack_batch_result(got)[:, None],
+                k.pack_batch_result(want)[:, None])
+    rows = got.rows.cpu().numpy()
+    assert rows[5] == -1 and (rows >= 0).sum() > 12
+
+
+@pytest.mark.cuda
+def test_entry_runs_on_the_card(cuda):
+    from nomad_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert args[1].device.type == "cuda"
+    got = fn(*args)
+    want = k.score_batch_plain(*args)
+    assert_same(k.pack_batch_result(got)[:, None],
+                k.pack_batch_result(want)[:, None])
+
+
+@pytest.mark.cuda
+def test_verify_plan_fit_matches_plain(cuda):
+    from nomad_tpu_torch.server.plan_apply import host_verify
+
+    m = cluster(cuda)
+    arrays = m.sync()
+    host = m.snapshot_host()
+    rng = np.random.default_rng(12)
+    kk = 700
+    rows = rng.integers(0, N_NODES, kk).astype(np.int32)
+    rows[rng.random(kk) < 0.1] = -1
+    safe = np.maximum(rows, 0)
+    room = host["totals"][safe] - host["used"][safe]
+    deltas = (room * rng.uniform(0.2, 1.4, (kk, 3))).astype(np.float32)
+    elig_required = rng.random(kk) < 0.6
+    elig = arrays.eligible.clone()
+    elig[torch.from_numpy(rng.choice(N_NODES, 40, replace=False)).to(cuda)] = False
+    view = arrays._replace(eligible=elig)
+    host_elig = dict(host, eligible=elig.cpu().numpy())
+    ins = [torch.from_numpy(x).to(cuda) for x in (rows, deltas, elig_required)]
+    before = k.verify_plan_fit.launches
+    got = k.verify_plan_fit(view, *ins)
+    assert k.verify_plan_fit.launches == before + 1
+    want = k.verify_plan_fit_plain(view, *ins)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and got.shape == (kk,)
+    assert int(got.view(torch.uint8).max()) <= 1
+    assert torch.equal(got.cpu(), want.cpu())
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), host_verify(host_elig, rows, deltas, elig_required))
+    assert not bool(got.all()) and bool(got.any())

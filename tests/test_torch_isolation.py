@@ -38,7 +38,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import nomad_tpu_torch, nomad_tpu_torch.server\n"
         "import nomad_tpu_torch.server.server, nomad_tpu_torch.ops.kernels\n"
         "import nomad_tpu_torch.ops.build, nomad_tpu_torch.state.carry\n"
-        "import nomad_tpu_torch.scheduler\n"
+        "import nomad_tpu_torch.scheduler, nomad_tpu_torch.entry\n"
+        "import nomad_tpu_torch.parallel\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -47,6 +48,7 @@ def test_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "nomad_tpu_torch.server.server" in loaded
+    assert "nomad_tpu_torch.parallel.sharding" in loaded
     bad = [m for m in loaded if forbidden(m)]
     assert bad == []
 
@@ -64,6 +66,8 @@ def imports_of(path: Path):
 def test_no_module_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    for must in ("entry.py", "parallel/__init__.py", "parallel/sharding.py"):
+        assert PORT / must in files
     bad = {str(f.relative_to(REPO)): name
            for f in files for name in imports_of(f) if forbidden(name)}
     assert bad == {}
