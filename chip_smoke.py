@@ -20,6 +20,13 @@ Phases:
    dense usage with 40 plan deltas folded in by ``_dense_used0``, against
    the plain version on five lanes of the second batch, under the same
    contract.
+3b. place_batch — K2, the staged dispatch: ``place_batch``
+   (``fused_place.cu`` with every lane live, at full features as the
+   staged path runs it) against ``place_batch_plain`` on both batches
+   (the second's six dead lanes become padding lanes with all-False host
+   masks), exactly, and equal to ``fused_place`` on every live lane; its
+   CUDA-event and device time beside ``fused_place``'s at the same
+   features, its plain time and its bound (``fused_place_work``).
 4. system kernel — ``system_feasible`` against its plain version on the
    same cluster, over ten system-job requests (a static port some nodes
    hold, datacenter lists, numeric, version, presence and NaN-column
@@ -45,15 +52,27 @@ Phases:
    fused_place, system allocs stop, each drain completes) and 16 others
    go down (their allocs are lost and the service ones replaced).
    ``system_feasible`` must have launched once per system eval and its
-   plain version never.
+   plain version never.  Then the job lifecycle on the same server, the
+   smoke playing the client and its health reports: a destructive
+   rolling update (count 8, max_parallel 2) to successful, a canary
+   placed alone and auto-promoted, a failing update auto-reverted, an
+   interval periodic job's children, a dispatched parameterized job, a
+   scale up and down within policy, and ``system_gc`` reaping a stopped
+   job and 16 down nodes, whose freed matrix rows 16 new nodes take and
+   the system jobs cover through ``system_feasible``.
+5b. staged server — a second server built under ``NOMAD_TPU_MEGABATCH=0``
+   over the same 10,000 nodes takes the same 64-job burst: exactly 128
+   fitting allocs, counts zeroed just before, ``place_batch`` launched and
+   neither fused kernel nor a plain version; its evals/s, applier
+   refusals and retries are logged beside the fused burst's.
 6. timing — each kernel and its plain version at the phase-2 shape (for
    ``system_feasible``, the node-exporter request at N=10240), timed with
    CUDA events (median of 20 launches after warm-up; fused_place's and
    allocs_fit_verify's plain versions the median of 3 runs), beside its
    bound: the larger of the bytes it must move over the card's memory
    rate and the float32 operations it needs over the card's float32
-   rate.  ``system_feasible`` also gets its device time from the
-   profiler and the time of one whole system dispatch.
+   rate, and its device time from the profiler.  ``system_feasible``
+   also gets the time of one whole system dispatch.
 
 7. batched scoring — ``score_batch`` (one launch scores every node for
    B independent evals and picks each one's best) on a fresh cluster
@@ -83,7 +102,8 @@ Phases:
    ``host_verify`` on every row (and the applier's own verdicts); every
    output byte 0 or 1; its times and bound at K=10,000.
 
-Prints the kernel table as one JSON line before the last, and ends with
+Each phase logs its seconds.  Prints the kernel table as one JSON line
+before the last, and ends with
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device or when any phase fails.
 """
@@ -798,6 +818,73 @@ def phase_solo(batch: Batch, results: dict) -> None:
     r["max_abs_err"] = max(r["max_abs_err"], err_max)
 
 
+def phase_place_batch(batches, card: str, results: dict) -> None:
+    """K2, the staged dispatch: ``place_batch`` (``fused_place.cu`` with
+    every lane live, at full features as the staged path runs it) against
+    ``place_batch_plain`` on both batches, under the full contract; the
+    feature batch's last six lanes are padding (all-False host masks).  On
+    live lanes it must also equal ``fused_place``'s output exactly.  Then,
+    on the bench batch: its CUDA-event time, device time (profiler), plain
+    time and bound, beside ``fused_place``'s at the same features."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    full = k.FULL_FEATURES
+    r = results.setdefault("place_batch", {"max_abs_err": 0.0})
+    for label, batch in zip(("bench-shapes", "features"), batches):
+        args = batch.args()[:-1]
+        kern = k.place_batch(*args, SCAN)
+        plain = k.place_batch_plain(*args, SCAN)
+        fused = k.fused_place(*batch.args(), SCAN, full)
+        _sync()
+        ok, err, msg = compare(kern.cpu(), plain.cpu(), k.PACKED_WIDTH)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        live = batch.np["lane_mask"]
+        pad = ~batch.np["host_masks"].any(axis=1)
+        got = kern.cpu().numpy()
+        same_live = np.array_equal(got[live], fused.cpu().numpy()[live])
+        pad_rows = got[pad][..., k.PACKED_ROW]
+        log(f"kernels[{label}] place_batch vs plain: {msg} (max |err| "
+            f"{err:.3g}); {int((got[..., k.PACKED_ROW] >= 0).sum())} "
+            f"placements; live lanes equal fused_place: {same_live}; "
+            f"{int(pad.sum())} pad lanes")
+        if not ok:
+            raise AssertionError(f"place_batch disagrees on {label}: {msg}")
+        if not same_live or (pad_rows != -1).any():
+            raise AssertionError(f"place_batch on {label}: live lanes differ "
+                                 "from fused_place or a pad lane placed")
+    r["matches_plain"] = True
+
+    batch = batches[0]
+    args = batch.args()[:-1]
+    packed = k.place_batch(*args, SCAN)
+
+    def run():
+        k.place_batch(*args, SCAN)
+
+    def run_plain():
+        k.place_batch_plain(*args, SCAN)
+
+    def run_fused():
+        k.fused_place(*batch.args(), SCAN, full)
+
+    ms = time_cuda(run, runs=20)
+    fused_ms = time_cuda(run_fused, runs=20)
+    dev_us = device_us_per_launch(run, "fused_place_kernel")
+    fused_us = device_us_per_launch(run_fused, "fused_place_kernel")
+    plain_ms = time_cuda(run_plain, runs=3, warmup=1)
+    # The same function of the same inputs as fused_place's (the wider
+    # loops of full features add no work these lanes need).
+    work = fused_place_work(batch, packed, SCAN)
+    b_ms, by = bound(*work)
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+             library_ms=None, device_us=dev_us)
+    log(f"timing place_batch: {ms:.4f} ms by CUDA events, {dev_us:.3f} us "
+        f"a launch on the device (profiler); fused_place at the same full "
+        f"features {fused_ms:.4f} ms, {fused_us:.3f} us; plain version "
+        f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
+        f"{work[1]:.4g} ops (card: {card})")
+
+
 def system_jobs():
     """The two system jobs of the server phase."""
     from nomad_tpu_torch import mock
@@ -926,93 +1013,190 @@ def phase_system_kernel(m, results: dict) -> None:
     results["system_feasible"] = {"max_abs_err": err, "matches_plain": True}
 
 
-def phase_server(card: str, results: dict, recorder) -> None:
-    from nomad_tpu_torch import mock
-    from nomad_tpu_torch.ops import kernels as k
-    from nomad_tpu_torch.server.server import Server, ServerConfig
+def server_config():
+    """The server phases' config: 32 workers, 64 lanes, long heartbeat TTLs
+    (the smoke plays no client heartbeats, and marks nodes down itself
+    through the RPC that heartbeat expiry calls)."""
+    from nomad_tpu_torch.server.server import ServerConfig
 
+    return ServerConfig(num_workers=SERVER_WORKERS, coalescer_lanes=LANES,
+                        node_capacity=CAPACITY, heartbeat_min_ttl=3600.0,
+                        heartbeat_max_ttl=7200.0)
+
+
+def register_cluster(srv, label: str) -> dict:
+    """Register the server phases' 10,000 nodes and pre-load their usage
+    (seeded); returns node id -> (datacenter, class)."""
     rng = np.random.default_rng(7)
-    # Long heartbeat TTLs: the smoke plays no client heartbeats, and marks
-    # nodes down itself through the RPC that heartbeat expiry calls.
-    cfg = ServerConfig(num_workers=SERVER_WORKERS, coalescer_lanes=LANES,
-                       node_capacity=CAPACITY, heartbeat_min_ttl=3600.0,
-                       heartbeat_max_ttl=7200.0)
-    srv = Server(cfg, device="cuda")
+    t0 = time.perf_counter()
+    specs = {}
+    for i in range(N_NODES):
+        node = server_node(i)
+        specs[node.id] = (node.datacenter, node.node_class)
+        srv.register_node(node)
+    with srv.matrix._host_lock:
+        host = srv.matrix.snapshot_host()
+        usage = np.round(rng.uniform(0.1, 0.6, (N_NODES, 3))
+                         * host["totals"][:N_NODES])
+        host["used"][:N_NODES] = usage
+        srv.matrix._dirty.update(range(N_NODES))
+        srv.matrix.version += 1
+    log(f"{label}: {N_NODES} nodes registered in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return specs
+
+
+def service_job(i: int):
+    """The service bursts' i-th job: count 2 over the four datacenters."""
+    from nomad_tpu_torch import mock
+
+    job = mock.job()
+    job.datacenters = list(DATACENTERS)
+    tg = job.task_groups[0]
+    tg.count = SERVER_COUNT
+    tg.tasks[0].resources.cpu = 50 + 25 * (i % 4)
+    tg.tasks[0].resources.memory_mb = 64 + 32 * (i % 3)
+    return job
+
+
+def check_burst(srv, evals, label: str) -> dict:
+    """Every job of a service burst holds exactly SERVER_COUNT allocs, each
+    on a registered node whose usage fits its capacity; returns the
+    burst's counts."""
+    statuses = {srv.store.eval_by_id(e.id).status for e in evals}
+    allocs = [a for a in srv.store.allocs.values()
+              if not a.terminal_status()]
+    want = SERVER_JOBS * SERVER_COUNT
+    if len(allocs) != want:
+        raise AssertionError(f"{label}: {len(allocs)} allocations, "
+                             f"expected {want}")
+    host = srv.matrix.snapshot_host()
+    per_job = {}
+    for a in allocs:
+        row = srv.matrix.row_of.get(a.node_id)
+        if row is None or srv.store.node_by_id(a.node_id) is None:
+            raise AssertionError(f"alloc {a.id} on unknown node {a.node_id}")
+        if not np.all(host["used"][row] <= host["totals"][row]):
+            raise AssertionError(f"node row {row} over capacity")
+        per_job[a.job_id] = per_job.get(a.job_id, 0) + 1
+    if sorted(set(per_job.values())) != [SERVER_COUNT]:
+        raise AssertionError(f"{label}: allocs per job "
+                             f"{sorted(set(per_job.values()))}")
+    return {"allocs": len(allocs), "statuses": sorted(statuses),
+            "retried": retried_evals(srv, evals)}
+
+
+def phase_server(card: str, results: dict, recorder) -> None:
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+
+    srv = Server(server_config(), device="cuda")
     srv.start()
     try:
-        t0 = time.perf_counter()
-        specs = {}
-        for i in range(N_NODES):
-            node = server_node(i)
-            specs[node.id] = (node.datacenter, node.node_class)
-            srv.register_node(node)
-        with srv.matrix._host_lock:
-            host = srv.matrix.snapshot_host()
-            usage = np.round(rng.uniform(0.1, 0.6, (N_NODES, 3))
-                             * host["totals"][:N_NODES])
-            host["used"][:N_NODES] = usage
-            srv.matrix._dirty.update(range(N_NODES))
-            srv.matrix.version += 1
-        log(f"server: {N_NODES} nodes registered in "
-            f"{time.perf_counter() - t0:.2f} s")
-
-        def make_job(i: int):
-            job = mock.job()
-            job.datacenters = list(DATACENTERS)
-            tg = job.task_groups[0]
-            tg.count = SERVER_COUNT
-            tg.tasks[0].resources.cpu = 50 + 25 * (i % 4)
-            tg.tasks[0].resources.memory_mb = 64 + 32 * (i % 3)
-            return job
-
+        specs = register_cluster(srv, "server")
         k.reset_counts()
-        evals, elapsed = burst(srv, [make_job(i) for i in range(SERVER_JOBS)])
+        refused0 = srv.plan_applier.nodes_refused
+        evals, elapsed = burst(srv, [service_job(i) for i in range(SERVER_JOBS)])
         launches = {
             "fused_place": k.fused_place.launches,
             "allocs_fit_verify": k.allocs_fit_verify.launches,
+            "place_batch": k.place_batch.launches,
             "plain": k.place_lanes.calls + k.verify_lanes.calls,
         }
-        statuses = {srv.store.eval_by_id(e.id).status for e in evals}
-        retried = retried_evals(srv, evals)
-        allocs = [a for a in srv.store.allocs.values()
-                  if not a.terminal_status()]
+        refused = srv.plan_applier.nodes_refused - refused0
+        counts = check_burst(srv, evals, "server")
         log(f"server: {SERVER_JOBS} jobs x {SERVER_COUNT} in {elapsed:.3f} s = "
-            f"{SERVER_JOBS / elapsed:.1f} evals/s, {len(allocs)} allocations, "
-            f"eval statuses {sorted(statuses)} ({retried} retried after "
-            f"placement conflicts), "
+            f"{SERVER_JOBS / elapsed:.1f} evals/s, {counts['allocs']} "
+            f"allocations, eval statuses {counts['statuses']} "
+            f"({counts['retried']} retried after placement conflicts), "
+            f"{refused} node placements refused by the applier, "
             f"{srv.coalescer.dispatches} dispatches / "
             f"{srv.coalescer.fused_lanes} lanes (card: {card})")
         log(f"server: launches during the run {launches}")
-        want = SERVER_JOBS * SERVER_COUNT
-        if len(allocs) != want:
-            raise AssertionError(f"{len(allocs)} allocations, expected {want}")
-        # Placements are real: every alloc sits on a registered node whose
-        # usage (pre-load plus its allocs) fits its capacity.
-        host = srv.matrix.snapshot_host()
-        per_job = {}
-        for a in allocs:
-            row = srv.matrix.row_of.get(a.node_id)
-            if row is None or srv.store.node_by_id(a.node_id) is None:
-                raise AssertionError(f"alloc {a.id} on unknown node {a.node_id}")
-            if not np.all(host["used"][row] <= host["totals"][row]):
-                raise AssertionError(f"node row {row} over capacity")
-            per_job[a.job_id] = per_job.get(a.job_id, 0) + 1
-        if sorted(set(per_job.values())) != [SERVER_COUNT]:
-            raise AssertionError(f"allocs per job {sorted(set(per_job.values()))}")
         if launches["fused_place"] <= 0 or launches["allocs_fit_verify"] <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
-        if launches["plain"] != 0:
-            raise AssertionError(f"plain version ran on the card: {launches}")
+        if launches["plain"] != 0 or launches["place_batch"] != 0:
+            raise AssertionError(f"plain version or the staged kernel ran "
+                                 f"on the fused path: {launches}")
         results["fused_place"]["launches"] = launches["fused_place"]
         results["allocs_fit_verify"]["launches"] = launches["allocs_fit_verify"]
         results["server"] = {
             "evals_per_s": SERVER_JOBS / elapsed, "seconds": elapsed,
             "dispatches": srv.coalescer.dispatches,
-            "lanes": srv.coalescer.fused_lanes,
+            "lanes": srv.coalescer.fused_lanes, "refused": refused,
+            "retried": counts["retried"],
         }
-        solo_run(srv, make_job, results)
-        trace_burst(srv, [make_job(i) for i in range(SERVER_JOBS)], card)
+        solo_run(srv, service_job, results)
+        trace_burst(srv, [service_job(i) for i in range(SERVER_JOBS)], card)
         system_run(srv, specs, card, results, recorder)
+        lifecycle_run(srv, specs, card, results)
+    finally:
+        srv.shutdown()
+
+
+def phase_staged_server(card: str, results: dict) -> None:
+    """The staged dispatch end to end: a second server built under
+    ``NOMAD_TPU_MEGABATCH=0`` over the same 10,000 nodes takes the same
+    64-job burst through ``place_batch`` (no verify column, so the applier
+    alone judges each pick).  Counts zeroed just before the burst and read
+    just after: place_batch launched, the fused kernels and the plain
+    versions never."""
+    import os
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+
+    prev = os.environ.get("NOMAD_TPU_MEGABATCH")
+    os.environ["NOMAD_TPU_MEGABATCH"] = "0"
+    try:
+        srv = Server(server_config(), device="cuda")
+    finally:
+        if prev is None:
+            del os.environ["NOMAD_TPU_MEGABATCH"]
+        else:
+            os.environ["NOMAD_TPU_MEGABATCH"] = prev
+    if srv.coalescer.megabatch:
+        raise AssertionError("the staged server's coalescer is fused")
+    srv.start()
+    try:
+        register_cluster(srv, "staged")
+        k.reset_counts()
+        evals, elapsed = burst(srv, [service_job(i) for i in range(SERVER_JOBS)])
+        launches = {
+            "place_batch": k.place_batch.launches,
+            "fused_place": k.fused_place.launches,
+            "allocs_fit_verify": k.allocs_fit_verify.launches,
+            "plain": k.place_lanes.calls + k.verify_lanes.calls,
+        }
+        refused = srv.plan_applier.nodes_refused
+        counts = check_burst(srv, evals, "staged")
+        plan_retries = sum(1 for e in srv.store.evals.values()
+                           if e.triggered_by == "max-plan-attempts")
+        log(f"staged: {SERVER_JOBS} jobs x {SERVER_COUNT} in {elapsed:.3f} s "
+            f"= {SERVER_JOBS / elapsed:.1f} evals/s, {counts['allocs']} "
+            f"allocations, eval statuses {counts['statuses']} "
+            f"({counts['retried']} retried after placement conflicts, "
+            f"{plan_retries} max-plan-attempts evals), {refused} node "
+            f"placements refused by the applier, "
+            f"{srv.plan_applier.plans_partial} plans partly or wholly "
+            f"refused, {srv.coalescer.dispatches} dispatches / "
+            f"{srv.coalescer.coalesced_requests} lanes (card: {card})")
+        log(f"staged: launches during the run {launches}")
+        if launches["place_batch"] <= 0:
+            raise AssertionError(f"place_batch never launched: {launches}")
+        if (launches["allocs_fit_verify"] or launches["fused_place"]
+                or launches["plain"]):
+            raise AssertionError(f"the staged path ran another kernel or "
+                                 f"a plain version: {launches}")
+        if srv.coalescer.fused_dispatches:
+            raise AssertionError("the staged server made a fused dispatch")
+        results["place_batch"]["launches"] = launches["place_batch"]
+        results["staged_server"] = {
+            "evals_per_s": SERVER_JOBS / elapsed, "seconds": elapsed,
+            "dispatches": srv.coalescer.dispatches,
+            "lanes": srv.coalescer.coalesced_requests, "refused": refused,
+            "retried": counts["retried"], "plan_retries": plan_retries,
+        }
     finally:
         srv.shutdown()
 
@@ -1298,6 +1482,310 @@ def system_run(srv, specs: dict, card: str, results: dict,
         f"this phase, {mean_ms:.3f} ms each on average (card: {card})")
 
 
+def play_health(srv, healthy=lambda a: True) -> int:
+    """The client under deployments: report each alloc the scheduler wants
+    running that was not reported yet, or not judged healthy or unhealthy
+    yet, as running with the ``healthy`` verdict (allocs outside a
+    deployment get no verdict); returns how many."""
+    from nomad_tpu_torch.structs.types import AllocDeploymentStatus
+
+    updates = []
+    for a in list(srv.store.allocs.values()):
+        if a.desired_status != "run" or a.terminal_status():
+            continue
+        unjudged = a.deployment_id and (
+            a.deployment_status is None or a.deployment_status.healthy is None)
+        if a.client_status != "pending" and not unjudged:
+            continue
+        upd = a.copy()
+        upd.client_status = "running"
+        if a.deployment_id:
+            prev = a.deployment_status
+            upd.deployment_status = AllocDeploymentStatus(
+                healthy=healthy(a), timestamp=time.time(),
+                canary=prev.canary if prev is not None else False)
+        updates.append(upd)
+    if updates:
+        srv.update_allocs_from_client(updates)
+    return len(updates)
+
+
+def drive(srv, pred, what: str, healthy=lambda a: True,
+          timeout_s: float = LIFECYCLE_TIMEOUT_S) -> float:
+    """Play the client until ``pred()``; returns seconds."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{what}: not reached in {timeout_s:.0f} s")
+        play_health(srv, healthy)
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def lifecycle_job(job_id: str, count: int, job_type: str = "service"):
+    from nomad_tpu_torch import mock
+
+    job = mock.job()
+    job.id = job.name = job_id
+    job.type = job_type
+    job.datacenters = list(DATACENTERS)
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.tasks[0].resources.cpu = 100
+    tg.tasks[0].resources.memory_mb = 64
+    return job
+
+
+def lifecycle_run(srv, specs: dict, card: str, results: dict) -> None:
+    """The job lifecycle on the server phase's 10,000 nodes, the smoke as
+    the client: a destructive rolling update (count 8, max_parallel 2) to
+    successful, a canary auto-promoted, a failing update auto-reverted, an
+    interval periodic job's children, a dispatched parameterized job, a
+    scale up and down within policy, and ``system_gc``: a stopped job and
+    16 down nodes reaped, then 16 nodes registered into the freed matrix
+    rows and covered by the system jobs through ``system_feasible``.
+    Launch counts zeroed just before and read just after."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.structs.types import (
+        PeriodicConfig, ScalingPolicy, UpdateStrategy,
+    )
+
+    def update(**kw):
+        kw.setdefault("max_parallel", 1)
+        kw.setdefault("min_healthy_time", 0.1)
+        kw.setdefault("healthy_deadline", 120.0)
+        kw.setdefault("progress_deadline", 600.0)
+        return UpdateStrategy(**kw)
+
+    def deployment(job_id, version):
+        for d in list(srv.store.deployments.values()):
+            if d.job_id == job_id and d.job_version == version:
+                return d
+        return None
+
+    def successful(job_id, version):
+        d = deployment(job_id, version)
+        return d is not None and d.status == "successful"
+
+    def new_version(job, env, **upd):
+        job2 = job.copy()
+        job2.task_groups[0].tasks[0].env = dict(env)
+        if upd:
+            job2.task_groups[0].update = update(**upd)
+        return job2
+
+    def versions(job_id):
+        return sorted(a.job.version for a in live_allocs(srv, job_id))
+
+    timings = {}
+    k.reset_counts()
+    t_phase = time.perf_counter()
+
+    # 1. Rolling update: eight allocs, two at a time.
+    t0 = time.perf_counter()
+    web = lifecycle_job("rolling", 8)
+    web.task_groups[0].update = update(max_parallel=2)
+    srv.submit_job(web)
+    drive(srv, lambda: successful("rolling", 0), "rolling v0")
+    srv.submit_job(new_version(web, {"V": "2"}))
+    drive(srv, lambda: successful("rolling", 1), "rolling v1")
+    dep = deployment("rolling", 1)
+    batches = sum(1 for e in list(srv.store.evals.values())
+                  if e.deployment_id == dep.id
+                  and e.triggered_by == "deployment-watcher")
+    if versions("rolling") != [1] * 8 or batches < 3:
+        raise AssertionError(f"rolling update: live versions "
+                             f"{versions('rolling')}, {batches} batch evals")
+    timings["rolling"] = time.perf_counter() - t0
+    log(f"lifecycle: rolling update of 8 (max_parallel 2) successful in "
+        f"{timings['rolling']:.3f} s, {batches} watcher batch evals")
+
+    # 2. Canary, auto-promoted (the first version has none: ROADMAP R7).
+    t0 = time.perf_counter()
+    api = lifecycle_job("canary", 3)
+    api.task_groups[0].update = update()
+    srv.submit_job(api)
+    drive(srv, lambda: successful("canary", 0), "canary v0")
+    srv.submit_job(new_version(api, {"V": "2"}, canary=1, auto_promote=True))
+    wait_quiet(srv, "canary placed")
+    canaries = [a for a in live_allocs(srv, "canary")
+                if a.deployment_status is not None and a.deployment_status.canary]
+    drive(srv, lambda: successful("canary", 1), "canary v1")
+    promoted = [s.promoted for s in deployment("canary", 1).task_groups.values()]
+    if len(canaries) != 1 or promoted != [True] or versions("canary") != [1] * 3:
+        raise AssertionError(f"canary: {len(canaries)} canaries before "
+                             f"promotion, promoted {promoted}, live versions "
+                             f"{versions('canary')}")
+    timings["canary"] = time.perf_counter() - t0
+    log(f"lifecycle: canary placed alone, auto-promoted, successful in "
+        f"{timings['canary']:.3f} s")
+
+    # 3. A failing update, auto-reverted.
+    t0 = time.perf_counter()
+    rev = lifecycle_job("revert", 2)
+    rev.task_groups[0].update = update(auto_revert=True)
+    srv.submit_job(rev)
+    drive(srv, lambda: successful("revert", 0), "revert v0")
+    srv.submit_job(new_version(rev, {"BAD": "1"}))
+
+    def reverted():
+        return (srv.store.job_by_id("default", "revert").version == 2
+                and versions("revert") == [2, 2]
+                and all(a.client_status == "running"
+                        for a in live_allocs(srv, "revert")))
+
+    drive(srv, reverted, "auto-revert",
+          healthy=lambda a: not a.job.task_groups[0].tasks[0].env.get("BAD"))
+    failed = deployment("revert", 1)
+    if failed.status != "failed":
+        raise AssertionError(f"revert: v1 deployment {failed.status}")
+    timings["revert"] = time.perf_counter() - t0
+    log(f"lifecycle: failing update {failed.status} "
+        f"({failed.status_description}), reverted to version 2 in "
+        f"{timings['revert']:.3f} s")
+
+    # 4. An interval periodic batch job: two children or more, each placed.
+    t0 = time.perf_counter()
+    cron = lifecycle_job("cron", 1, "batch")
+    cron.periodic = PeriodicConfig(spec="0.5", spec_type="interval")
+    if srv.submit_job(cron) is not None:
+        raise AssertionError("a periodic job got an eval at register")
+
+    def children():
+        return [jid for (_, jid) in list(srv.store.jobs)
+                if jid.startswith("cron/periodic-")]
+
+    drive(srv, lambda: len(children()) >= 2, "two periodic children")
+    srv.deregister_job("default", "cron")
+    wait_quiet(srv, "periodic children")
+    kids = children()
+    unplaced = [j for j in kids if len(live_allocs(srv, j)) != 1]
+    if unplaced:
+        raise AssertionError(f"periodic children not placed: {unplaced}")
+    timings["periodic"] = time.perf_counter() - t0
+    log(f"lifecycle: {len(kids)} periodic children launched and placed in "
+        f"{timings['periodic']:.3f} s")
+
+    # 5. A dispatched parameterized job.
+    t0 = time.perf_counter()
+    param = lifecycle_job("param", 1, "batch")
+    param.parameterized = {"meta_required": ["k"], "payload": "optional"}
+    srv.submit_job(param)
+    try:
+        srv.dispatch_job("default", "param")
+        raise AssertionError("dispatch without required meta was accepted")
+    except ValueError:
+        pass
+    child, ev = srv.dispatch_job("default", "param", payload=b"hi",
+                                 meta={"k": "v"})
+    wait_quiet(srv, "dispatch")
+    if (srv.store.eval_by_id(ev.id).status != "complete"
+            or len(live_allocs(srv, child.id)) != 1):
+        raise AssertionError(f"dispatched child {child.id} not placed")
+    timings["dispatch"] = time.perf_counter() - t0
+    log(f"lifecycle: dispatched {child.id} placed in "
+        f"{timings['dispatch']:.3f} s")
+
+    # 6. Scale up and down within the group's policy.
+    t0 = time.perf_counter()
+    sc = lifecycle_job("scaled", 2)
+    sc.task_groups[0].scaling = ScalingPolicy(min=1, max=5)
+    srv.submit_job(sc)
+    wait_quiet(srv, "scaled v0")
+    try:
+        srv.scale_job("default", "scaled", "web", 6)
+        raise AssertionError("scale past the policy was accepted")
+    except ValueError:
+        pass
+    counts = []
+    for count in (4, 1):
+        srv.scale_job("default", "scaled", "web", count)
+        wait_quiet(srv, f"scale to {count}")
+        counts.append(len(live_allocs(srv, "scaled")))
+    if counts != [4, 1]:
+        raise AssertionError(f"scale: live allocs {counts}, expected [4, 1]")
+    timings["scale"] = time.perf_counter() - t0
+    log(f"lifecycle: scaled 2 -> 4 -> 1 in {timings['scale']:.3f} s")
+
+    # 7. system_gc: the stopped job and 16 down nodes (in a datacenter no
+    # job runs in, so they hold no allocs), then 16 nodes into their rows.
+    t0 = time.perf_counter()
+    first = N_NODES + SYSTEM_NEW_NODES
+    doomed = []
+    for i in range(first, first + SYSTEM_DOWNS):
+        node = server_node(i)
+        node.datacenter = "dc5"
+        srv.register_node(node)
+        doomed.append(node.id)
+    wait_quiet(srv, "dc5 joins")
+    for nid in doomed:
+        srv.update_node_status(nid, "down")
+    srv.deregister_job("default", "scaled")
+    wait_quiet(srv, "down and deregister")
+    freed = {srv.matrix.row_of[nid] for nid in doomed}
+    launches = {"fused_place": k.fused_place.launches,
+                "plain": (k.place_lanes.calls + k.verify_lanes.calls
+                          + k.system_feasible_plain.calls)}
+    if launches["fused_place"] <= 0 or launches["plain"]:
+        raise AssertionError(f"lifecycle placements: launches {launches}")
+    k.reset_counts()
+    srv.system_gc()
+    drive(srv, lambda: any(e.type == "_core" and e.status == "complete"
+                           for e in list(srv.store.evals.values())),
+          "the force-gc eval")
+    wait_quiet(srv, "gc")
+    gone = [nid for nid in doomed if srv.store.node_by_id(nid) is None]
+    if (len(gone) != len(doomed) or srv.store.job_by_id("default", "scaled")
+            or freed & set(srv.matrix.row_of.values())):
+        raise AssertionError(f"gc: {len(gone)} of {len(doomed)} down nodes "
+                             f"reaped, stopped job still stored: "
+                             f"{bool(srv.store.job_by_id('default', 'scaled'))}")
+    strays = [a.id for a in live_allocs(srv)
+              if srv.store.node_by_id(a.node_id) is None]
+    if strays:
+        raise AssertionError(f"gc: {len(strays)} live allocs on unknown nodes")
+    reaped_s = time.perf_counter() - t0
+    fresh = []
+    for i in range(first + SYSTEM_DOWNS, first + 2 * SYSTEM_DOWNS):
+        node = server_node(i)
+        specs[node.id] = (node.datacenter, node.node_class)
+        srv.register_node(node)
+        fresh.append(node.id)
+    wait_quiet(srv, "joins into freed rows")
+    rows = {srv.matrix.row_of[nid] for nid in fresh}
+    if rows != freed:
+        raise AssertionError(f"new nodes took rows {sorted(rows)}, freed "
+                             f"{sorted(freed)}")
+    exporter, shipper = system_jobs()
+    for nid in fresh:
+        dc, cls = specs[nid]
+        want = {exporter.id} | ({shipper.id} if dc == "dc1"
+                                and cls != "class-3" else set())
+        have = [a.job_id for a in live_allocs(srv, node_id=nid)]
+        if sorted(have) != sorted(want):
+            raise AssertionError(f"node {nid} in a freed row holds {have}, "
+                                 f"expected {sorted(want)}")
+    sys_launches = k.system_feasible.launches
+    if sys_launches <= 0:
+        raise AssertionError("no system eval of the joins ran system_feasible")
+    timings["gc"] = time.perf_counter() - t0
+    log(f"lifecycle: system_gc reaped the stopped job and {len(gone)} down "
+        f"nodes in {reaped_s:.3f} s; {len(fresh)} nodes registered into "
+        f"the freed rows got their system allocs ({sys_launches} "
+        f"system_feasible launches) in {timings['gc'] - reaped_s:.3f} s")
+
+    gc_plain = (k.place_lanes.calls + k.verify_lanes.calls
+                + k.system_feasible_plain.calls)
+    if gc_plain:
+        raise AssertionError(f"plain version ran on the card: {gc_plain}")
+    check_capacity(srv, "lifecycle")
+    timings["total"] = time.perf_counter() - t_phase
+    results["lifecycle"] = timings
+    log(f"lifecycle: every check passed in {timings['total']:.3f} s; "
+        f"launches before the gc step {launches}, in it system_feasible "
+        f"{sys_launches} (card: {card})")
+
+
 def solo_run(srv, make_job, results: dict) -> None:
     """One distinct_hosts group of SOLO_COUNT: its plan outgrows
     MAX_DELTA_ROWS deltas after three chunks, so the stack's solo path
@@ -1450,14 +1938,16 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
          verify_work(batch, packed, SCAN)),
     ):
         ms = time_cuda(fn, runs=20)
+        dev_us = device_us_per_launch(fn, f"{name}_kernel")
         plain_ms = time_cuda(plain, runs=3, warmup=1)
         b_ms, by = bound(*work)
         r = results[name]
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                 library_ms=None)
-        log(f"timing {name}: {ms:.4f} ms (plain version {plain_ms:.3f} ms, "
-            f"bound {b_ms:.5f} ms by {by}; {work[0]} bytes, {work[1]:.4g} ops; "
-            f"card: {card})")
+                 library_ms=None, device_us=dev_us)
+        log(f"timing {name}: {ms:.4f} ms by CUDA events, {dev_us:.3f} us a "
+            f"launch on the device (profiler); plain version {plain_ms:.3f} "
+            f"ms, bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
+            f"{work[1]:.4g} ops (card: {card})")
 
 
 def device_us_per_launch(fn, name: str, runs: int = 20) -> float:
@@ -1524,7 +2014,8 @@ def phase_system_timing(m, card: str, results: dict) -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     dispatch_ms = statistics.median(times)
     results["system_feasible"].update(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+        device_us=dev_us)
     results["system_server"]["dispatch_ms"] = dispatch_ms
     log(f"timing system_feasible: {ms:.4f} ms by CUDA events, "
         f"{dev_us:.3f} us a launch on the device (profiler); plain version "
@@ -2003,7 +2494,16 @@ def main() -> int:
     log(f"card: {card}")
     t_start = time.perf_counter()
     results: dict = {}
-    phase_build(card)
+    seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("build", phase_build, card)
     t0 = time.perf_counter()
     m = build_cluster(N_NODES, CAPACITY, "cuda")
     batches = make_batches(m, "cuda")
@@ -2011,24 +2511,33 @@ def main() -> int:
         f"{LANES} lanes x {SCAN} placements in "
         f"{time.perf_counter() - t0:.2f} s; features "
         f"{tuple(batches[0].features)} / {tuple(batches[1].features)}")
-    phase_kernels(batches, results)
-    phase_solo(batches[1], results)
-    phase_system_kernel(m, results)
+    timed("kernels", phase_kernels, batches, results)
+    timed("solo", phase_solo, batches[1], results)
+    timed("place_batch", phase_place_batch, batches, card, results)
+    timed("system kernel", phase_system_kernel, m, results)
     recorder = HostVerifyRecorder()
     try:
-        phase_server(card, results, recorder)
+        timed("server", phase_server, card, results, recorder)
     finally:
         recorder.close()
-    phase_timing(batches[0], card, results)
-    phase_system_timing(m, card, results)
+    timed("staged server", phase_staged_server, card, results)
+    timed("timing", phase_timing, batches[0], card, results)
+    timed("system timing", phase_system_timing, m, card, results)
     # A fresh bench-shaped cluster: phase 2 left three rows nearly full.
-    phase_batched_scoring(build_cluster(N_NODES, CAPACITY, "cuda"), card,
-                          results)
-    phase_plan_verify(card, m, recorder, results)
+    timed("batched scoring", phase_batched_scoring,
+          build_cluster(N_NODES, CAPACITY, "cuda"), card, results)
+    timed("plan verify", phase_plan_verify, card, m, recorder, results)
+    fused, staged = results["server"], results["staged_server"]
+    log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
+        f"{fused['refused']} refusals, {fused['retried']} retried; staged "
+        f"{staged['evals_per_s']:.1f} evals/s, {staged['refused']} "
+        f"refusals, {staged['retried']} retried (card: {card})")
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",
                         "nomad_tpu/ops/kernels.py:968"),
+        "place_batch": ("nomad_tpu_torch/ops/csrc/fused_place.cu",
+                        "nomad_tpu/ops/kernels.py:817"),
         "allocs_fit_verify": ("nomad_tpu_torch/ops/csrc/allocs_fit_verify.cu",
                               "nomad_tpu/ops/kernels.py:1026"),
         "system_feasible": ("nomad_tpu_torch/ops/csrc/system_feasible.cu",
@@ -2047,7 +2556,7 @@ def main() -> int:
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
-            "solo_run": r.get("solo_run"),
+            "solo_run": r.get("solo_run"), "device_us": r.get("device_us"),
             "matches_plain": r.get("matches_plain", False),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")

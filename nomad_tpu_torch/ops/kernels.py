@@ -833,20 +833,14 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def fused_place(arrays: DeviceArrays, used, delta_rows, delta_vals,
-                tg_counts, spread_counts, penalties, req_i, req_f,
-                class_eligs, host_masks, lane_mask, n_placements: int,
-                features: Features = FULL_FEATURES):
-    """B placement scans in one launch — the ``fused_place`` kernel
-    (``csrc/fused_place.cu``) on the card, :func:`place_lanes` on the CPU.
-    Returns (B, n_placements, PACKED_WIDTH) f32."""
-    if used.device.type == "cpu":
-        return place_lanes(arrays, used, delta_rows, delta_vals, tg_counts,
-                           spread_counts, penalties, req_i, req_f,
-                           class_eligs, host_masks, lane_mask, n_placements,
-                           features)
+def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
+                        delta_vals, tg_counts, spread_counts, penalties,
+                        req_i, req_f, class_eligs, host_masks, lane_mask,
+                        n_placements: int, features: Features):
+    """Check the operands and launch ``csrc/fused_place.cu`` on the card;
+    ``name`` is the wrapper whose launch this is (error messages)."""
     if used.device.type != "cuda":
-        raise ValueError(f"fused_place: unsupported device {used.device}")
+        raise ValueError(f"{name}: unsupported device {used.device}")
     dev = used.device
     n = _check_matrix(arrays, used, dev)
     b, d = delta_rows.shape
@@ -887,12 +881,73 @@ def fused_place(arrays: DeviceArrays, used, delta_rows, delta_vals,
         _stream(),
     )
     if rc != 0:
-        raise RuntimeError(f"fused_place launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def fused_place(arrays: DeviceArrays, used, delta_rows, delta_vals,
+                tg_counts, spread_counts, penalties, req_i, req_f,
+                class_eligs, host_masks, lane_mask, n_placements: int,
+                features: Features = FULL_FEATURES):
+    """B placement scans in one launch — the ``fused_place`` kernel
+    (``csrc/fused_place.cu``) on the card, :func:`place_lanes` on the CPU.
+    Returns (B, n_placements, PACKED_WIDTH) f32."""
+    if used.device.type == "cpu":
+        return place_lanes(arrays, used, delta_rows, delta_vals, tg_counts,
+                           spread_counts, penalties, req_i, req_f,
+                           class_eligs, host_masks, lane_mask, n_placements,
+                           features)
+    out = _launch_fused_place(
+        "fused_place", arrays, used, delta_rows, delta_vals, tg_counts,
+        spread_counts, penalties, req_i, req_f, class_eligs, host_masks,
+        lane_mask, n_placements, features)
     fused_place.launches += 1
     return out
 
 
 fused_place.launches = 0
+
+
+def place_batch_plain(arrays: DeviceArrays, used, delta_rows, delta_vals,
+                      tg_counts, spread_counts, penalties, req_i, req_f,
+                      class_eligs, host_masks, n_placements: int,
+                      features: Features = FULL_FEATURES):
+    """Plain version of ``place_batch``: :func:`place_lanes` with every
+    lane live.  Returns (B, n_placements, PACKED_WIDTH) f32."""
+    live = torch.ones((req_i.shape[0],), dtype=torch.bool, device=used.device)
+    return place_lanes(arrays, used, delta_rows, delta_vals, tg_counts,
+                       spread_counts, penalties, req_i, req_f, class_eligs,
+                       host_masks, live, n_placements, features)
+
+
+def place_batch(arrays: DeviceArrays, used, delta_rows, delta_vals,
+                tg_counts, spread_counts, penalties, req_i, req_f,
+                class_eligs, host_masks, n_placements: int,
+                features: Features = FULL_FEATURES):
+    """B independent placement scans in one launch, with no lane mask and
+    no verify column — the staged dispatch (JAX ``_place_batch_impl``,
+    ``nomad_tpu/ops/kernels.py:817``).  Its body is the per-lane scan of
+    the fused dispatch, so on the card this launches
+    ``csrc/fused_place.cu`` with every lane live; on the CPU it runs
+    :func:`place_batch_plain`.  A lane whose host mask is all False (the
+    reference's padding) places nothing and counts every eligible node as
+    filtered, as the reference's does.  Returns (B, n_placements,
+    PACKED_WIDTH) f32."""
+    if used.device.type == "cpu":
+        return place_batch_plain(arrays, used, delta_rows, delta_vals,
+                                 tg_counts, spread_counts, penalties, req_i,
+                                 req_f, class_eligs, host_masks,
+                                 n_placements, features)
+    live = torch.ones((req_i.shape[0],), dtype=torch.bool, device=used.device)
+    out = _launch_fused_place(
+        "place_batch", arrays, used, delta_rows, delta_vals, tg_counts,
+        spread_counts, penalties, req_i, req_f, class_eligs, host_masks,
+        live, n_placements, features)
+    place_batch.launches += 1
+    return out
+
+
+place_batch.launches = 0
 
 
 def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
@@ -1169,6 +1224,7 @@ def reset_counts() -> None:
     """Zero every launch and call count (the smoke reads them around the
     main path)."""
     fused_place.launches = 0
+    place_batch.launches = 0
     allocs_fit_verify.launches = 0
     system_feasible.launches = 0
     score_batch.launches = 0

@@ -4,10 +4,11 @@ Mirrors the reference's ``scheduler/`` package boundary: a scheduler is a
 pure function of (snapshot, eval) → plan submitted through a ``Planner``
 (scheduler/scheduler.go:54-119).  The ranking pipeline runs as kernels on
 the card (``nomad_tpu_torch.ops.kernels``); this package is the host
-orchestration around them.  The service, batch and system schedulers
-are ported; the core (GC) scheduler is not yet.
+orchestration around them: the service, batch and system schedulers, and
+the core scheduler that runs garbage collection.
 """
 
+from .core import CoreScheduler
 from .generic import GenericScheduler
 from .system import SystemScheduler
 from .stack import GenericStack, SystemStack
@@ -16,6 +17,7 @@ BUILTIN_SCHEDULERS = {
     "service": lambda *a, **kw: GenericScheduler("service", *a, **kw),
     "batch": lambda *a, **kw: GenericScheduler("batch", *a, **kw),
     "system": lambda *a, **kw: SystemScheduler(*a, **kw),
+    "_core": lambda *a, **kw: CoreScheduler(*a, **kw),
 }
 
 

@@ -5,7 +5,10 @@ dispatch thread drains the queue, stages up to ``max_lanes`` requests into
 preallocated ``(max_lanes, …)`` buffers, and issues ONE fused dispatch
 (``ops.kernels.fused_place_batch``: the ``fused_place`` and
 ``allocs_fit_verify`` kernels) whose packed ``(B, P, 8)`` result costs one
-device→host copy.
+device→host copy.  With ``NOMAD_TPU_MEGABATCH=0`` (read at construction)
+the dispatch is the staged one instead: ``ops.kernels.place_batch``, one
+launch with no verify column, whose ``(B, P, 7)`` result leaves every
+pick's fit to the plan applier.
 
 The loop is a producer/consumer pipeline, as in the JAX package:
 
@@ -23,16 +26,19 @@ a mismatch at resolve time counts into ``stale_dispatches``.  Correctness
 does not depend on it: the serialized plan applier re-verifies every plan
 against authoritative state.
 
-Every dispatch has the same shapes — ``max_lanes`` lanes (short batches
-padded with dead lanes) and a ``PLACEMENT_CHUNK``-long scan (callers take
-the first rows they asked for).  The reference's analog: many schedulers
-walk nodes concurrently and the plan applier serializes commits
-(worker.go:49-53, plan_apply.go:49-69).
+A fused dispatch has the same shapes every time — ``max_lanes`` lanes
+(short batches padded with dead lanes) and a ``PLACEMENT_CHUNK``-long scan
+(callers take the first rows they asked for).  A staged dispatch launches
+only its live lanes (the reference pads to ``max_lanes`` with all-False
+host masks; the resolver reads only live lanes either way).  The
+reference's analog: many schedulers walk nodes concurrently and the plan
+applier serializes commits (worker.go:49-53, plan_apply.go:49-69).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -56,11 +62,21 @@ log = logging.getLogger(__name__)
 MAX_DELTA_ROWS = 32
 
 _DEPTH_ENV = "NOMAD_TPU_PIPELINE_DEPTH"
+_MEGABATCH_ENV = "NOMAD_TPU_MEGABATCH"
 
 
 def default_pipeline_depth() -> int:
     """Overlapping dispatches kept in flight (env-tunable, default 8)."""
     return max(1, env_int(_DEPTH_ENV, 8))
+
+
+def megabatch_enabled() -> bool:
+    """The fused dispatch (``ops.kernels.fused_place_batch``: explicit lane
+    masks and the cross-lane AllocsFit verify column).  Default on;
+    ``NOMAD_TPU_MEGABATCH=0`` selects the staged ``place_batch`` dispatch."""
+    return os.environ.get(_MEGABATCH_ENV, "1").lower() not in (
+        "0", "off", "false",
+    )
 
 
 @dataclass
@@ -170,6 +186,7 @@ class DeviceCoalescer:
         # Fused accounting: launches and live lanes, and the
         # occupancy-features ratchet (a monotone widening union of what
         # the batches used).
+        self.megabatch = megabatch_enabled()
         self.fused_dispatches = 0
         self.fused_lanes = 0
         self._features: Optional[kernels.Features] = None
@@ -436,8 +453,10 @@ class DeviceCoalescer:
         return st
 
     def _dispatch(self, batch: List[_Pending]):
-        """Launch one fused dispatch; returns (packed result, completion
-        event or None on the CPU, matrix version at launch)."""
+        """Launch one fused or staged dispatch; returns (packed result,
+        completion event or None on the CPU, matrix version at launch).
+        The staged dispatch launches the ``k`` live lanes only, at full
+        features, as the reference's staged path (no ``features=``)."""
         with DEVICE_LOCK:
             arrays = self.matrix.sync(self.device)
             version = self.matrix.version
@@ -486,7 +505,6 @@ class DeviceCoalescer:
         for i, p in enumerate(batch):
             self._req_slab.fill(i, p.request)
         ri, rf = kernels.pack_requests(self._req_slab.batch())
-        feats = self._ratchet_features(k)
 
         dev = arrays.used.device
 
@@ -495,13 +513,21 @@ class DeviceCoalescer:
             # the staging buffers can be rewritten by the next dispatch.
             return torch.from_numpy(a).to(dev, non_blocking=True)
 
-        packed = kernels.fused_place_batch(
-            arrays, arrays.used, up(dr), up(dv), up(tg), up(sc), up(pen),
-            up(ri), up(rf), up(ce), up(hm), up(lm),
-            n_placements=self.scan_length, features=feats,
-        )
-        self.fused_dispatches += 1
-        self.fused_lanes += k
+        if self.megabatch:
+            packed = kernels.fused_place_batch(
+                arrays, arrays.used, up(dr), up(dv), up(tg), up(sc),
+                up(pen), up(ri), up(rf), up(ce), up(hm), up(lm),
+                n_placements=self.scan_length,
+                features=self._ratchet_features(k),
+            )
+            self.fused_dispatches += 1
+            self.fused_lanes += k
+        else:
+            packed = kernels.place_batch(
+                arrays, arrays.used, up(dr[:k]), up(dv[:k]), up(tg[:k]),
+                up(sc[:k]), up(pen[:k]), up(ri[:k]), up(rf[:k]),
+                up(ce[:k]), up(hm[:k]), n_placements=self.scan_length,
+            )
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
@@ -519,14 +545,19 @@ class DeviceCoalescer:
             # to propose — the serialized applier re-verifies every plan.
             self.stale_dispatches += 1
             trace.event("coalescer.stale_dispatch")
+        fused = arr.shape[-1] == kernels.FUSED_PACKED_WIDTH
         for i, p in enumerate(entries):
             row = arr[i]
             rows_i = row[:, kernels.PACKED_ROW].astype(np.int32)
-            # The device-resident AllocsFit column: a 0.0 on a real
-            # placement means an earlier lane in THIS launch already
-            # claimed the capacity.  Advisory: the applier decides.
-            vcol = row[:, kernels.FUSED_PACKED_VERIFIED]
-            fit_verified = ~((rows_i >= 0) & (vcol == 0.0))
+            fit_verified = None
+            if fused:
+                # The device-resident AllocsFit column: a 0.0 on a real
+                # placement means an earlier lane in THIS launch already
+                # claimed the capacity.  Advisory: the applier decides.  A
+                # staged result has no such column: the applier alone
+                # judges its picks.
+                vcol = row[:, kernels.FUSED_PACKED_VERIFIED]
+                fit_verified = ~((rows_i >= 0) & (vcol == 0.0))
             p.outcome = PlaceOutcome(
                 rows=rows_i,
                 scores=row[:, kernels.PACKED_SCORE],

@@ -68,6 +68,8 @@ class PlanApplier:
         self._stop = threading.Event()
         self.plans_applied = 0
         self.plans_partial = 0
+        # Nodes whose placements a plan asked for and the check refused.
+        self.nodes_refused = 0
 
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
@@ -200,6 +202,7 @@ class PlanApplier:
     def _apply_locked(self, plan: Plan):
         with self.server.metrics.timer("nomad.plan.evaluate").time():
             failed_nodes = self._evaluate(plan)
+        self.nodes_refused += len(failed_nodes)
         committed_allocs: Dict[str, List[Allocation]] = {
             nid: allocs
             for nid, allocs in plan.node_allocation.items()

@@ -5,14 +5,14 @@ Reference: ``nomad/server.go`` (Server struct :95-257).  Wired here: the
 state store and the card-resident node matrix, the dispatch coalescer,
 the eval broker, blocked evals with the periodic retry of those blocked
 after placement conflicts, the plan queue with its serialized applier, N
-scheduling workers, the heartbeat TTL wheel and the node drainer, and the
-node RPCs that feed them.  Every mutation funnels
-through the ``apply_*`` methods with a monotonically assigned index.
+scheduling workers, the heartbeat TTL wheel, the node drainer, the
+deployment watcher, the periodic dispatcher and the leader reapers (failed
+evals, volume claims, periodic core GC), with the job, deployment, node
+and GC RPCs that feed them.  Every mutation funnels through the
+``apply_*`` methods with a monotonically assigned index.
 
-The deployment watcher, the periodic dispatcher, the load gate, overload
-control, SLOs, replication, ACLs, the failed-eval reaper and volume
-watcher, the core (GC) scheduler and the HTTP API are not part of this
-package yet.
+The load gate, overload control, SLOs, replication and the WAL, ACLs,
+telemetry gauges and the HTTP API are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import random
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..device import resolve_device
 from ..state.matrix import NodeMatrix, computed_class_key, node_attributes
@@ -30,6 +30,7 @@ from ..state.store import StateStore
 from ..structs.types import (
     AllocClientStatus,
     Allocation,
+    DeploymentStatus,
     DesiredTransition,
     EvalStatus,
     EvalTrigger,
@@ -39,13 +40,19 @@ from ..structs.types import (
     JobType,
     Node,
     NodeStatus,
+    Plan,
+    PlanResult,
+    ScalingEvent,
     SchedulerConfiguration,
+    generate_uuid,
 )
 from .admission import admit
 from .blocked_evals import BlockedEvals
+from .deploymentwatcher import DeploymentWatcher
 from .drainer import NodeDrainer
 from .eval_broker import EvalBroker
 from .heartbeat import HeartbeatManager
+from .periodic import PeriodicDispatcher
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .worker import Worker
@@ -71,6 +78,12 @@ class ServerConfig:
     # Seconds between retries of the evals blocked after placement
     # conflicts (leader.go failedEvalUnblockInterval).
     failed_eval_unblock_interval: float = 60.0
+    # Delay of the follow-up eval the failed-eval reaper cuts for an eval
+    # past its delivery limit (leader.go failedEvalFollowUpWaitRange).
+    failed_eval_unblock_delay: float = 60.0
+    # Core GC cadence (leader.go schedulePeriodic; one shared interval for
+    # the eval, job, deployment and node GC evals).
+    core_gc_interval: float = 300.0
     scheduler_config: SchedulerConfiguration = field(
         default_factory=SchedulerConfiguration
     )
@@ -110,7 +123,10 @@ class Server:
             min_ttl=self.config.heartbeat_min_ttl,
             max_ttl=self.config.heartbeat_max_ttl,
         )
+        # Leader services (leader.go:222 establishLeadership set).
+        self.deployment_watcher = DeploymentWatcher(self)
         self.drainer = NodeDrainer(self)
+        self.periodic = PeriodicDispatcher(self)
         # The matrix's single dispatch port: concurrent selects coalesce
         # into batched kernel launches (scheduler/coalescer.py).
         from ..scheduler.coalescer import DeviceCoalescer
@@ -124,9 +140,11 @@ class Server:
 
         self._index_lock = threading.Lock()
         self._index = 0
+        self._last_gc = time.time()
         self._leader = False
         self._unblock_stop = threading.Event()
         self._unblocker: Optional[threading.Thread] = None
+        self._reaper: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
 
@@ -165,13 +183,19 @@ class Server:
         for node in list(self.store.nodes.values()):
             if node.status != NodeStatus.DOWN.value:
                 self.heartbeater.reset_heartbeat(node.id)
+        self.deployment_watcher.start()
         self.drainer.start()
+        self.periodic.start()  # restores periodic jobs from state
         self._unblock_stop.clear()
         self._unblocker = threading.Thread(
             target=self._periodic_unblock_failed, name="unblock-failed",
             daemon=True,
         )
         self._unblocker.start()
+        self._reaper = threading.Thread(
+            target=self._run_reapers, name="leader-reapers", daemon=True
+        )
+        self._reaper.start()
 
     def _periodic_unblock_failed(self) -> None:
         """Retry the evals blocked after placement conflicts
@@ -184,9 +208,12 @@ class Server:
     def shutdown(self) -> None:
         self._leader = False
         self._unblock_stop.set()
-        if self._unblocker is not None:
-            self._unblocker.join()
+        for thread in (self._unblocker, self._reaper):
+            if thread is not None:
+                thread.join()
+        self.deployment_watcher.stop()
         self.drainer.stop()
+        self.periodic.stop()
         for w in self.workers:
             w.stop()
         self.plan_applier.stop()
@@ -208,8 +235,10 @@ class Server:
         job.status = JobStatus.PENDING.value
         self.store.upsert_job(index, job)
         if job.is_periodic() or job.is_parameterized():
-            # Children are dispatched later (job_endpoint.go:245-260); the
-            # periodic dispatcher is not part of this package yet.
+            # Periodic/parameterized jobs get no eval at register time —
+            # children are dispatched later (job_endpoint.go:245-260).
+            if job.is_periodic() and self._leader:
+                self.periodic.add(job)
             return None
         ev = Evaluation(
             namespace=job.namespace,
@@ -222,6 +251,74 @@ class Server:
         )
         self.apply_eval_updates([ev])
         return ev
+
+    def plan_job(self, job: Job, diff: bool = False) -> Dict:
+        """`job plan` dry run (nomad/job_endpoint.go:1642 Plan +
+        scheduler/annotate.go): run the real scheduler — and through it
+        the coalescer and the card's kernels — against a pinned snapshot
+        with a recording planner; nothing commits.  Returns per-TG
+        create/update/destroy annotations, placement failures, and
+        (optionally) a coarse spec diff."""
+        from ..scheduler import new_scheduler
+        from ..structs import serde
+
+        snap = self.store.snapshot()
+        prev = snap.job_by_id(job.namespace, job.id)
+        if prev is not None:
+            job.version = prev.version + (
+                1 if StateStore._job_spec_changed(prev, job) else 0
+            )
+        else:
+            job.version = 0
+
+        ev = Evaluation(
+            namespace=job.namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by="job-plan",
+            job_id=job.id,
+            status=EvalStatus.PENDING.value,
+            annotate_plan=True,
+            snapshot_index=snap.snapshot_index,
+        )
+        planner = _DryRunPlanner(snap)
+        sched = new_scheduler(
+            job.type or JobType.SERVICE.value,
+            _ProposedJobSnapshot(snap, job),
+            planner,
+            self.matrix,
+        )
+        sched.process(ev)
+
+        updated = planner.updated_eval
+        annotations = getattr(sched, "last_desired_updates", None)
+        if annotations is None:
+            # System scheduler: derive counts from the recorded plan.
+            annotations = {}
+            for plan in planner.plans:
+                for allocs in plan.node_allocation.values():
+                    for a in allocs:
+                        d = annotations.setdefault(a.task_group, {})
+                        d["place"] = d.get("place", 0) + 1
+                for allocs in plan.node_update.values():
+                    for a in allocs:
+                        d = annotations.setdefault(a.task_group, {})
+                        d["stop"] = d.get("stop", 0) + 1
+        out: Dict = {
+            "Annotations": {"DesiredTGUpdates": annotations},
+            "FailedTGAllocs": {
+                tg: serde.to_wire(m)
+                for tg, m in (
+                    updated.failed_tg_allocs if updated else {}
+                ).items()
+            },
+            "JobModifyIndex": prev.modify_index if prev else 0,
+            "CreatedEvals": len(planner.evals),
+            "Index": snap.snapshot_index,
+        }
+        if diff:
+            out["Diff"] = _job_diff(prev, job)
+        return out
 
     def deregister_job(
         self, namespace: str, job_id: str, purge: bool = False
@@ -237,6 +334,8 @@ class Server:
             stopped.stop = True
             self.store.upsert_job(index, stopped)
         self.blocked_evals.untrack(namespace, job_id)
+        if job.is_periodic():
+            self.periodic.remove(namespace, job_id)
         ev = Evaluation(
             namespace=namespace,
             priority=job.priority,
@@ -481,6 +580,213 @@ class Server:
         return ev
 
     # ------------------------------------------------------------------
+    # Deployment RPCs (nomad/deployment_endpoint.go Promote/Fail/Pause +
+    # Job revert, nomad/job_endpoint.go:1240 Revert)
+    # ------------------------------------------------------------------
+
+    def update_deployment_status(
+        self, deployment_id: str, status: str, description: str = ""
+    ) -> None:
+        self.store.update_deployment_status(
+            self.next_index(), deployment_id, status, description
+        )
+
+    def promote_deployment(
+        self, deployment_id: str, groups: Optional[List[str]] = None
+    ) -> None:
+        """Flip canary groups to promoted and cut an eval so the reconciler
+        begins replacing old-version allocs."""
+        dep = self.store.deployment_by_id(deployment_id)
+        if dep is None:
+            return
+        self.store.update_deployment_promotion(
+            self.next_index(), deployment_id, groups
+        )
+        job = self.store.job_by_id(dep.namespace, dep.job_id)
+        if job is not None:
+            self.apply_eval_updates([
+                Evaluation(
+                    namespace=dep.namespace,
+                    priority=job.priority,
+                    type=job.type,
+                    triggered_by=EvalTrigger.DEPLOYMENT_WATCHER.value,
+                    job_id=dep.job_id,
+                    deployment_id=dep.id,
+                    status=EvalStatus.PENDING.value,
+                )
+            ])
+
+    def fail_deployment(self, deployment_id: str, description: str = "") -> None:
+        self.update_deployment_status(
+            deployment_id,
+            DeploymentStatus.FAILED.value,
+            description or "Deployment marked as failed",
+        )
+
+    def revert_job(
+        self, namespace: str, job_id: str, to_version: Optional[int] = None
+    ) -> Optional[Evaluation]:
+        """Re-submit a prior job version as a new version (auto-revert and
+        the `job revert` CLI; nomad/job_endpoint.go:1240)."""
+        current = self.store.job_by_id(namespace, job_id)
+        if current is None:
+            return None
+        versions = self.store.job_versions.get((namespace, job_id), [])
+        target: Optional[Job] = None
+        for v in reversed(versions):
+            if to_version is not None:
+                if v.version == to_version:
+                    target = v
+                    break
+            elif v.version < current.version:
+                target = v
+                break
+        if target is None:
+            return None
+        reverted = target.copy()
+        reverted.stop = False
+        return self.submit_job(reverted)
+
+    def pause_deployment(self, deployment_id: str, pause: bool) -> None:
+        """Pause/resume a rolling update (Deployment.Pause,
+        nomad/deployment_endpoint.go): paused deployments are skipped by
+        the watcher's pacing loop until resumed."""
+        self.update_deployment_status(
+            deployment_id,
+            DeploymentStatus.PAUSED.value if pause
+            else DeploymentStatus.RUNNING.value,
+            "Deployment is paused" if pause
+            else "Deployment is running",
+        )
+
+    # ------------------------------------------------------------------
+    # Parameterized dispatch + scaling (nomad/job_endpoint.go:1849
+    # Dispatch, :980 Scale).  Both register through submit_job; the
+    # reference's load gate (which exempts these server-side resubmits)
+    # comes with the admission gate, so submit_job has no ``internal=``
+    # switch yet.
+    # ------------------------------------------------------------------
+
+    # structs.DispatchPayloadSizeLimit (16 KiB), pre-base64.
+    DISPATCH_PAYLOAD_LIMIT = 16 * 1024
+
+    def dispatch_job(
+        self,
+        namespace: str,
+        job_id: str,
+        payload: bytes = b"",
+        meta: Optional[Dict[str, str]] = None,
+    ) -> Tuple[Optional[Job], Optional[Evaluation]]:
+        """Instantiate a parameterized job as a dispatched child
+        (Job.Dispatch): validate meta against meta_required/meta_optional,
+        stamp the payload, and register ``<id>/dispatch-<ts>-<uuid>``."""
+        import base64
+
+        parent = self.store.job_by_id(namespace, job_id)
+        if parent is None:
+            raise ValueError("job not found")
+        if not parent.is_parameterized():
+            raise ValueError("job is not parameterized")
+        if parent.stop:
+            raise ValueError("job is stopped")
+        spec = parent.parameterized or {}
+        meta = dict(meta or {})
+        required = set(spec.get("meta_required", []))
+        optional = set(spec.get("meta_optional", []))
+        missing = required - set(meta)
+        if missing:
+            raise ValueError(f"missing required meta: {sorted(missing)}")
+        unexpected = set(meta) - required - optional
+        if unexpected:
+            raise ValueError(f"unpermitted meta: {sorted(unexpected)}")
+        payload_mode = spec.get("payload", "optional")
+        if payload and payload_mode == "forbidden":
+            raise ValueError("payload forbidden by parameterized block")
+        if not payload and payload_mode == "required":
+            raise ValueError("payload required by parameterized block")
+        if len(payload) > self.DISPATCH_PAYLOAD_LIMIT:
+            raise ValueError("payload exceeds 16 KiB limit")
+
+        child = parent.copy()
+        child.id = (
+            f"{parent.id}/dispatch-{int(time.time())}-"
+            f"{generate_uuid()[:8]}"
+        )
+        child.name = child.id
+        child.parent_id = parent.id
+        child.parameterized = None
+        child.periodic = None
+        child.meta = {**parent.meta, **meta}
+        child.payload = base64.b64encode(payload).decode() if payload else ""
+        child.version = 0
+        ev = self.submit_job(child)
+        return child, ev
+
+    def scale_job(
+        self,
+        namespace: str,
+        job_id: str,
+        group: str,
+        count: Optional[int],
+        message: str = "",
+        error: bool = False,
+        meta: Optional[Dict] = None,
+    ) -> Optional[Evaluation]:
+        """Set a group's count (Job.Scale): bounds-checked against the
+        group's scaling policy, records a ScalingEvent, and registers the
+        updated job (a new version, like the reference's raft apply)."""
+        job = self.store.job_by_id(namespace, job_id)
+        if job is None:
+            raise ValueError("job not found")
+        if not group and len(job.task_groups) == 1:
+            group = job.task_groups[0].name
+        tg = job.lookup_task_group(group)
+        if tg is None:
+            raise ValueError(f"no task group {group!r}")
+        if error and count is not None:
+            raise ValueError("scale cannot carry both count and error")
+
+        ev: Optional[Evaluation] = None
+        prev_count = tg.count
+        if count is not None:
+            if count < 0:
+                raise ValueError("count cannot be negative")
+            pol = tg.scaling
+            if pol is not None:
+                # Bounds apply even with the policy DISABLED: disabled
+                # stops the autoscaler from acting (scaling.go:74), it
+                # does not lift the operator-declared min/max guardrails.
+                if count < pol.min or (pol.max and count > pol.max):
+                    raise ValueError(
+                        f"count {count} outside policy bounds "
+                        f"[{pol.min}, {pol.max}]"
+                    )
+            updated = job.copy()
+            updated.lookup_task_group(group).count = count
+            ev = self.submit_job(updated)
+        self.store.record_scaling_event(
+            self.next_index(), namespace, job_id, group,
+            ScalingEvent(
+                time=time.time(),
+                count=count,
+                previous_count=prev_count,
+                message=message,
+                error=error,
+                eval_id=ev.id if ev else "",
+                meta=dict(meta or {}),
+            ),
+        )
+        return ev
+
+    def system_gc(self) -> None:
+        """Force a full GC sweep now (System.GarbageCollect,
+        nomad/system_endpoint.go): one force-gc core eval through the
+        normal broker/worker path."""
+        from ..scheduler.core import CORE_JOB_FORCE_GC
+
+        self.apply_eval_updates([_core_eval(CORE_JOB_FORCE_GC)])
+
+    # ------------------------------------------------------------------
     # Drainer applies
     # ------------------------------------------------------------------
 
@@ -506,6 +812,41 @@ class Server:
         )
         log.info("node %s drain complete", node_id)
 
+    def record_periodic_launch(
+        self, namespace: str, job_id: str, launch_time: float
+    ) -> None:
+        self.store.record_periodic_launch(
+            self.next_index(), namespace, job_id, launch_time
+        )
+
+    # ------------------------------------------------------------------
+    # GC applies (core_sched.go deletion raft applies)
+    # ------------------------------------------------------------------
+
+    def apply_gc(
+        self,
+        jobs: Optional[List[Tuple[str, str]]] = None,
+        evals: Optional[List[str]] = None,
+        allocs: Optional[List[str]] = None,
+        deployments: Optional[List[str]] = None,
+        nodes: Optional[List[str]] = None,
+    ) -> None:
+        index = self.next_index()
+        for aid in allocs or []:
+            self.store.delete_alloc(index, aid)
+        for eid in evals or []:
+            self.store.delete_eval(index, eid)
+        for ns, jid in jobs or []:
+            self.store.delete_job(index, ns, jid)
+            self.store.periodic_launch.pop((ns, jid), None)
+        for did in deployments or []:
+            self.store.delete_deployment(index, did)
+        for nid in nodes or []:
+            # The node's matrix row is freed; a later registration reuses
+            # it and marks it dirty, so the next sync uploads it.
+            self.heartbeater.clear_heartbeat(nid)
+            self.store.delete_node(index, nid)
+
     # ------------------------------------------------------------------
     # Plan-apply hook
     # ------------------------------------------------------------------
@@ -521,6 +862,82 @@ class Server:
                 self.blocked_evals.unblock(cls, index)
 
     # ------------------------------------------------------------------
+    # Leader reapers
+    # ------------------------------------------------------------------
+
+    def _run_reapers(self) -> None:
+        """The failed-eval reaper, the volume-claim release and the
+        periodic core GC evals, every 0.5 s (leader.go:556
+        reapFailedEvaluations, volumewatcher, :686 schedulePeriodic).  The
+        duplicate-blocked-eval reaper runs inline instead
+        (:meth:`_cancel_duplicate_blocked`)."""
+        while not self._unblock_stop.is_set():
+            try:
+                self._reap_once()
+            except Exception:  # noqa: BLE001
+                log.exception("leader reaper pass failed")
+            self._unblock_stop.wait(0.5)
+
+    def _reap_once(self) -> None:
+        for ev in self.eval_broker.failed_evals():
+            failed = ev.copy()
+            failed.status = EvalStatus.FAILED.value
+            failed.status_description = (
+                "maximum attempts reached (%d)" % self.eval_broker.delivery_limit
+            )
+            # Follow-up eval retries the job later with a delay
+            # (leader.go:573-585).
+            followup = Evaluation(
+                namespace=ev.namespace,
+                priority=ev.priority,
+                type=ev.type,
+                triggered_by=EvalTrigger.FAILED_FOLLOW_UP.value,
+                job_id=ev.job_id,
+                status=EvalStatus.PENDING.value,
+                wait_until=time.time() + self.config.failed_eval_unblock_delay,
+            )
+            self.store.upsert_evals(self.next_index(), [failed, followup])
+            self.eval_broker.enqueue(followup)
+        # Volume watcher (nomad/volumewatcher/volumes_watcher.go): release
+        # claims held by terminal or vanished allocs, then unblock evals
+        # that failed placement awaiting the volume.
+        released = False
+        for (ns, vid), vol in list(self.store.volumes.items()):
+            stale = [
+                aid
+                for aid in list(vol.read_claims) + list(vol.write_claims)
+                if (a := self.store.alloc_by_id(aid)) is None
+                or a.terminal_status()
+            ]
+            if stale:
+                self.store.release_volume_claims(
+                    self.next_index(), ns, vid, stale
+                )
+                released = True
+        if released:
+            self.blocked_evals.unblock_all(self.store.latest_index)
+        # Periodic core GC evals, processed by the CoreScheduler.
+        now = time.time()
+        if now - self._last_gc >= self.config.core_gc_interval:
+            self._last_gc = now
+            from ..scheduler.core import (
+                CORE_JOB_DEPLOYMENT_GC,
+                CORE_JOB_EVAL_GC,
+                CORE_JOB_JOB_GC,
+                CORE_JOB_NODE_GC,
+            )
+
+            self.apply_eval_updates([
+                _core_eval(kind)
+                for kind in (
+                    CORE_JOB_EVAL_GC,
+                    CORE_JOB_JOB_GC,
+                    CORE_JOB_DEPLOYMENT_GC,
+                    CORE_JOB_NODE_GC,
+                )
+            ])
+
+    # ------------------------------------------------------------------
 
     def wait_for_eval(
         self, eval_id: str, timeout: float = 10.0
@@ -533,3 +950,84 @@ class Server:
                 return ev
             time.sleep(0.01)
         return self.store.eval_by_id(eval_id)
+
+
+def _core_eval(kind: str) -> Evaluation:
+    """A ``_core`` eval whose job id names the GC routine
+    (core_sched.go job names)."""
+    return Evaluation(
+        namespace="-",
+        priority=100,
+        type="_core",
+        triggered_by=EvalTrigger.SCHEDULED.value,
+        job_id=kind,
+        status=EvalStatus.PENDING.value,
+    )
+
+
+class _DryRunPlanner:
+    """Planner seam for `job plan`: records plans/evals instead of
+    committing (the scheduler.Harness pattern, scheduler/testing.go:83,
+    used by the reference's Plan endpoint against a snapshot)."""
+
+    def __init__(self, snapshot):
+        self.snapshot = snapshot
+        self.plans: List[Plan] = []
+        self.evals: List[Evaluation] = []
+        self.updated_eval: Optional[Evaluation] = None
+
+    def submit_plan(self, plan):
+        self.plans.append(plan)
+        result = PlanResult(
+            node_allocation=dict(plan.node_allocation),
+            node_update=dict(plan.node_update),
+            node_preemptions=dict(plan.node_preemptions),
+            deployment=plan.deployment,
+            deployment_updates=list(plan.deployment_updates),
+            alloc_index=self.snapshot.snapshot_index,
+        )
+        return result, None
+
+    def update_eval(self, ev: Evaluation) -> None:
+        self.updated_eval = ev
+
+    def create_evals(self, evals: List[Evaluation]) -> None:
+        self.evals.extend(evals)
+
+    def refresh_snapshot(self):
+        return self.snapshot
+
+
+class _ProposedJobSnapshot:
+    """Snapshot overlay that serves the PROPOSED job spec for its own id
+    and delegates every other read to the pinned snapshot."""
+
+    def __init__(self, snapshot, job: Job):
+        self._snapshot = snapshot
+        self._job = job
+
+    def job_by_id(self, namespace: str, job_id: str):
+        if (namespace, job_id) == (self._job.namespace, self._job.id):
+            return self._job
+        return self._snapshot.job_by_id(namespace, job_id)
+
+    def __getattr__(self, name):
+        return getattr(self._snapshot, name)
+
+
+def _job_diff(prev: Optional[Job], new: Job) -> Dict:
+    """Coarse spec diff for `job plan -diff` (structs.JobDiff trimmed to
+    type + changed top-level fields)."""
+    import dataclasses as _dc
+
+    if prev is None:
+        return {"Type": "Added", "Fields": []}
+    a = _dc.asdict(prev)
+    b = _dc.asdict(new)
+    skip = {"version", "create_index", "modify_index", "job_modify_index",
+            "submit_time", "status"}
+    changed = sorted(
+        k for k in set(a) | set(b)
+        if k not in skip and a.get(k) != b.get(k)
+    )
+    return {"Type": "Edited" if changed else "None", "Fields": changed}

@@ -23,9 +23,8 @@ from ..structs.types import Evaluation, Plan, PlanResult
 
 log = logging.getLogger(__name__)
 
-# Scheduler types a worker serves (reference: config.EnabledSchedulers);
-# the core scheduler is not part of this package yet.
-DEFAULT_SCHEDULERS = ["service", "batch", "system"]
+# Scheduler types a worker serves (reference: config.EnabledSchedulers).
+DEFAULT_SCHEDULERS = ["service", "batch", "system", "_core"]
 
 # Backstop so a wedged applier can't deadlock a worker forever.
 PLAN_APPLY_TIMEOUT = 60.0
