@@ -27,6 +27,19 @@ Phases:
    masks), exactly, and equal to ``fused_place`` on every live lane; its
    CUDA-event and device time beside ``fused_place``'s at the same
    features, its plain time and its bound (``fused_place_work``).
+3c. edge shapes — the cases of ``tests/torch_edge_cases.py`` built with
+   the port on the card (300 nodes at capacity 333 and 11 lanes, B=1, ties
+   across node tiles and cluster CTAs, spread tables with duplicate hashes
+   and a free slot that the scan fills, s_width=2, lanes that fail at step
+   0, distinct_hosts, preemption, a dead lane): ``fused_place`` at each
+   case's own widths, ``place_batch`` at full widths and ``score_batch`` at
+   both, each against its plain version under the full contract.  Then
+   the three on both batches at 80,000 rows, where a lane's candidate
+   state no longer fits its cluster's shared memory and ``fused_place``
+   keeps it in device scratch (the phase fails if the launch shape says
+   otherwise).  Each kernel's launch shape (cluster size, lanes per CTA or
+   node span, node tile, dynamic shared memory, loop-width tier) is logged
+   here and in the timing phases.
 4. system kernel — ``system_feasible`` against its plain version on the
    same cluster, over ten system-job requests (a static port some nodes
    hold, datacenter lists, numeric, version, presence and NaN-column
@@ -115,6 +128,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -151,6 +165,9 @@ PIPELINE_DEPTH = 8
 PIPE_DISPATCHES = 100
 PLAIN_CHUNK = 256  # lanes per call of the plain version on the card
 VERIFY_ROWS = 10_000  # plan rows of the seeded verify case
+# fused_place's state past a cluster's shared memory (phase 3c).
+LARGE_ROWS = 80_000
+LARGE_LANES = 16
 
 
 def log(msg: str) -> None:
@@ -878,11 +895,136 @@ def phase_place_batch(batches, card: str, results: dict) -> None:
     b_ms, by = bound(*work)
     r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
              library_ms=None, device_us=dev_us)
+    shape = k.fused_place_shape(int(batch.arrays.used.shape[0]), LANES,
+                                batch.t["delta_rows"].shape[1], SCAN, full)
+    r["launch"] = shape
     log(f"timing place_batch: {ms:.4f} ms by CUDA events, {dev_us:.3f} us "
         f"a launch on the device (profiler); fused_place at the same full "
         f"features {fused_ms:.4f} ms, {fused_us:.3f} us; plain version "
         f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
-        f"{work[1]:.4g} ops (card: {card})")
+        f"{work[1]:.4g} ops; launch {shape} (card: {card})")
+
+
+def edge_cases_module():
+    """``tests/torch_edge_cases.py``: the edge shapes the CPU parity tests
+    and the card tests share (it imports neither package itself)."""
+    here = str(Path(__file__).resolve().parent / "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_edge_cases
+
+    return torch_edge_cases
+
+
+def edge_case(case):
+    """Case ``case`` of ``tests/torch_edge_cases.py``, built with the port
+    on the card: (arrays, numpy inputs, tensors on the card)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    edge = edge_cases_module()
+
+    w = edge.build(edge.port_pkg(), case)
+    arrays = w["m"].sync("cuda")
+    ri, rf = k.pack_requests(w["reqs"])
+    t = {name: torch.from_numpy(np.ascontiguousarray(w[name])).to("cuda")
+         for name in ("drows", "dvals", "tg", "counts", "pen", "ce", "hm",
+                      "lane_mask")}
+    t["ri"] = torch.from_numpy(ri).to("cuda")
+    t["rf"] = torch.from_numpy(rf).to("cuda")
+    return arrays, w, t
+
+
+def phase_edge_shapes(results: dict) -> None:
+    """The redesigned kernels on the edge shapes the tiling and the hoisted
+    scan make risky (ragged node and lane counts, B=1, ties across node
+    tiles and cluster CTAs, spread tables with duplicate hashes filled
+    mid-scan, s_width=2, lanes that fail at step 0): fused_place at the
+    case's own widths, place_batch at full widths and score_batch at both,
+    each against its plain version under the full contract, with the
+    launch shape each took."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    edge = edge_cases_module()
+
+    for case in edge.CASES:
+        arrays, w, t = edge_case(case)
+        n, b = int(arrays.used.shape[0]), int(t["ri"].shape[0])
+        own = k.features_of(w["reqs"])
+        args = (arrays, arrays.used, t["drows"], t["dvals"], t["tg"],
+                t["counts"], t["pen"], t["ri"], t["rf"], t["ce"], t["hm"])
+        checks = (
+            ("fused_place", own, k.fused_place(*args, t["lane_mask"],
+                                               w["scan"], own),
+             k.place_lanes(*args, t["lane_mask"], w["scan"], own),
+             k.fused_place_shape(n, b, w["drows"].shape[1], w["scan"], own)),
+            ("place_batch", k.FULL_FEATURES, k.place_batch(*args, w["scan"]),
+             k.place_batch_plain(*args, w["scan"]),
+             k.fused_place_shape(n, b, w["drows"].shape[1], w["scan"],
+                                 k.FULL_FEATURES)),
+        )
+        sb = (arrays, arrays.used, t["tg"], t["counts"], t["pen"], t["ri"],
+              t["rf"], t["ce"], t["hm"])
+        for f in (own, k.FULL_FEATURES):
+            checks += (("score_batch", f,
+                        k.pack_batch_result(k.score_batch(*sb, f))[:, None],
+                        k.pack_batch_result(k.score_batch_plain(*sb, f))[:, None],
+                        k.score_batch_shape(n, b, f)),)
+        _sync()
+        for name, f, got, want, shape in checks:
+            ok, err, msg = compare(got.cpu(), want.cpu(), k.PACKED_WIDTH)
+            r = results.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"edge[{case}] {name} at {tuple(f)} vs plain: {msg} (max "
+                f"|err| {err:.3g}); N={n}, B={b}; launch {shape}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees on edge case {case}: "
+                                     f"{msg}")
+    check_past_shared_memory(results)
+
+
+def check_past_shared_memory(results: dict) -> None:
+    """At LARGE_ROWS rows a lane's candidate state no longer fits its
+    cluster's shared memory and ``fused_place`` keeps it in device scratch,
+    in the same kernel: on both batches (built as phase 2's, LARGE_LANES
+    lanes), ``fused_place`` at the batch's widths, ``place_batch`` at full
+    widths and ``score_batch`` against their plain versions under the full
+    contract.  Fails if the launch shape keeps the state in shared memory."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    m = build_cluster(LARGE_ROWS, LARGE_ROWS, "cuda")
+    for label, batch in zip(("bench", "features"),
+                            make_batches(m, "cuda", lanes=LARGE_LANES)):
+        a = batch.args()
+        n, b, d = int(a[1].shape[0]), int(a[7].shape[0]), int(a[2].shape[1])
+        own = batch.features
+        sb = a[:2] + a[4:11]
+        checks = (
+            ("fused_place", own, k.fused_place(*a, SCAN, own),
+             k.place_lanes(*a, SCAN, own),
+             k.fused_place_shape(n, b, d, SCAN, own)),
+            ("place_batch", k.FULL_FEATURES, k.place_batch(*a[:11], SCAN),
+             k.place_batch_plain(*a[:11], SCAN),
+             k.fused_place_shape(n, b, d, SCAN, k.FULL_FEATURES)),
+            ("score_batch", own,
+             k.pack_batch_result(k.score_batch(*sb, own))[:, None],
+             k.pack_batch_result(k.score_batch_plain(*sb, own))[:, None],
+             k.score_batch_shape(n, b, own)),
+        )
+        _sync()
+        for name, f, got, want, shape in checks:
+            if name != "score_batch" and shape["state_in_smem"]:
+                raise AssertionError(f"{name} at N={n} kept its state in "
+                                     f"shared memory: {shape}")
+            ok, err, msg = compare(got.cpu(), want.cpu(), k.PACKED_WIDTH)
+            r = results.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"past shared memory [{label}] {name} at {tuple(f)} vs plain: "
+                f"{msg} (max |err| {err:.3g}); N={n}, B={b}; launch {shape}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees at N={n} "
+                                     f"({label} batch): {msg}")
 
 
 def system_jobs():
@@ -1944,10 +2086,16 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
         r = results[name]
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                  library_ms=None, device_us=dev_us)
+        shape = ""
+        if name == "fused_place":
+            r["launch"] = k.fused_place_shape(
+                int(batch.arrays.used.shape[0]), LANES,
+                t["delta_rows"].shape[1], SCAN, batch.features)
+            shape = f"; launch {r['launch']}"
         log(f"timing {name}: {ms:.4f} ms by CUDA events, {dev_us:.3f} us a "
             f"launch on the device (profiler); plain version {plain_ms:.3f} "
             f"ms, bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
-            f"{work[1]:.4g} ops (card: {card})")
+            f"{work[1]:.4g} ops{shape} (card: {card})")
 
 
 def device_us_per_launch(fn, name: str, runs: int = 20) -> float:
@@ -2284,9 +2432,12 @@ def phase_batched_scoring(m, card: str, results: dict) -> None:
         "ms_256": timing[INTERACTIVE_BATCH][0],
         "device_us_256": timing[INTERACTIVE_BATCH][1],
     }
+    n = int(arrays.used.shape[0])
+    r["launch"] = {b: k.score_batch_shape(n, b, feats) for b in timing}
     for label, (t_ms, t_us) in timing.items():
         log(f"timing score_batch B={label}: {t_ms:.4f} ms by CUDA events, "
-            f"{t_us:.3f} us a launch on the device (profiler) (card: {card})")
+            f"{t_us:.3f} us a launch on the device (profiler); launch "
+            f"{r['launch'][label]} (card: {card})")
     log(f"timing score_batch B={SCORE_BATCH}: plain version {plain_ms:.3f} ms "
         f"(chunks of {PLAIN_CHUNK} lanes); bound {b_ms:.5f} ms by {by}; "
         f"{work[0]} bytes, {work[1]:.4g} ops (card: {card})")
@@ -2514,6 +2665,7 @@ def main() -> int:
     timed("kernels", phase_kernels, batches, results)
     timed("solo", phase_solo, batches[1], results)
     timed("place_batch", phase_place_batch, batches, card, results)
+    timed("edge shapes", phase_edge_shapes, results)
     timed("system kernel", phase_system_kernel, m, results)
     recorder = HostVerifyRecorder()
     try:
@@ -2557,6 +2709,7 @@ def main() -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
             "solo_run": r.get("solo_run"), "device_us": r.get("device_us"),
+            "launch": r.get("launch"),
             "matches_plain": r.get("matches_plain", False),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")

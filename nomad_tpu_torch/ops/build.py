@@ -110,15 +110,18 @@ _ARGTYPES = {
     "nomad_fused_place": [_PTR] * 24 + [_INT] * 12 + [_PTR],
     "nomad_allocs_fit_verify": [_PTR] * 9 + [_INT] * 4 + [_PTR],
     "nomad_system_feasible": [_PTR] * 16 + [_INT] * 4 + [_PTR],
-    "nomad_score_batch": [_PTR] * 20 + [_INT] * 10 + [_PTR],
+    "nomad_score_batch": [_PTR] * 21 + [_INT] * 10 + [_PTR],
     "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
+    # Launch-shape queries of the two kernels that pick their own shape.
+    "nomad_fused_place_shape": [_INT] * 9 + [_PTR],
+    "nomad_score_batch_shape": [_INT] * 7 + [_PTR],
 }
 _ENTRY = {
-    "fused_place": "nomad_fused_place",
-    "allocs_fit_verify": "nomad_allocs_fit_verify",
-    "system_feasible": "nomad_system_feasible",
-    "score_batch": "nomad_score_batch",
-    "verify_plan_fit": "nomad_verify_plan_fit",
+    "fused_place": ("nomad_fused_place", "nomad_fused_place_shape"),
+    "allocs_fit_verify": ("nomad_allocs_fit_verify",),
+    "system_feasible": ("nomad_system_feasible",),
+    "score_batch": ("nomad_score_batch", "nomad_score_batch_shape"),
+    "verify_plan_fit": ("nomad_verify_plan_fit",),
 }
 
 
@@ -137,15 +140,17 @@ def _expected_layout() -> List[int]:
     out += [MAX_CONSTRAINTS, MAX_AFFINITIES, MAX_DATACENTERS, MAX_SPREADS,
             MAX_SPREAD_VALUES, MAX_STATIC_PORTS, DEVICE_SLOTS,
             PRIORITY_BUCKETS, DYN_PORT_CAPACITY, k.PACKED_WIDTH,
-            k.FUSED_PACKED_WIDTH]
+            k.FUSED_PACKED_WIDTH, k.MAX_LANE_DELTAS]
     return out
 
 
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(lib, _ENTRY[name])
-    fn.argtypes = _ARGTYPES[_ENTRY[name]]
-    fn.restype = ctypes.c_int
+    # Prototypes once, at load: a call then passes Python ints as they are.
+    for entry in _ENTRY[name]:
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
     lib.nomad_req_layout.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.nomad_req_layout.restype = ctypes.c_int
     want = _expected_layout()

@@ -1,4 +1,5 @@
-// Per-node feasibility, shared by fused_place.cu and system_feasible.cu.
+// Per-node feasibility of system_feasible.cu, and the predicate test that
+// scoring.cuh shares with it.
 //
 // The node-side half of nomad_tpu/ops/kernels.py:feasibility_mask
 // (:265): eligibility, datacenter membership, the constraint predicates
@@ -43,19 +44,17 @@ struct NodeTables {
   int w;                     // port words per node
 };
 
-// One predicate against one node (kernels.py:_check_predicate).  Inactive
-// slots (slot < 0) pass; missing attributes fail `=` and the ordered
-// compares and pass `!=`; NaN fails every ordered compare.
-__device__ __forceinline__ bool check_predicate(const NodeTables& M, int row,
-                                                int slot, int op, int want_hash,
-                                                float want_num) {
-  if (slot < 0) return true;
-  if (slot >= M.a) slot = M.a - 1;  // gathers clamp, as in JAX
-  const int h = M.attr_hash[(size_t)row * M.a + slot];
+// An op decoded once (pred_flags) for the per-node test (pred_holds).
+#define PF_NUM 1    // compares the numeric or version value
+#define PF_VER 2    // the version value, not the numeric one
+#define PF_PRES 4   // is_set / is_not_set
+#define PF_NEG 8    // != and is_not_set invert the result
+#define PF_LT 16
+#define PF_GT 32
+#define PF_EQ 64
+
+__host__ __device__ __forceinline__ int pred_flags(int op) {
   const bool is_ver = op >= OP_VER_EQ;
-  const float v = is_ver ? M.attr_ver[(size_t)row * M.a + slot]
-                         : M.attr_num[(size_t)row * M.a + slot];
-  const bool present = h != 0;
   const bool is_num = (op >= OP_LT && op <= OP_GTE) || is_ver;
   const bool is_pres = op == OP_IS_SET || op == OP_IS_NOT_SET;
   const bool negate = op == OP_NEQ || op == OP_IS_NOT_SET;
@@ -65,10 +64,38 @@ __device__ __forceinline__ bool check_predicate(const NodeTables& M, int row,
                        op == OP_VER_GTE;
   const bool want_eq = op == OP_LTE || op == OP_GTE || op == OP_VER_EQ ||
                        op == OP_VER_LTE || op == OP_VER_GTE;
-  const bool cmp = (want_lt && v < want_num) || (want_gt && v > want_num) ||
-                   (want_eq && v == want_num);
-  const bool inner = is_num ? cmp : (is_pres || h == want_hash);
-  return (present && inner) != negate;
+  return (is_num ? PF_NUM : 0) | (is_ver ? PF_VER : 0) |
+         (is_pres ? PF_PRES : 0) | (negate ? PF_NEG : 0) |
+         (want_lt ? PF_LT : 0) | (want_gt ? PF_GT : 0) | (want_eq ? PF_EQ : 0);
+}
+
+// One active predicate on a node's attribute hash `h` and value `v` (the
+// numeric or version value; read only where PF_NUM is set).  Missing
+// attributes fail `=` and the ordered compares and pass `!=`; NaN fails
+// every ordered compare.
+__device__ __forceinline__ bool pred_holds(int h, float v, int f,
+                                           int want_hash, float want_num) {
+  const bool present = h != 0;
+  const bool cmp = ((f & PF_LT) && v < want_num) ||
+                   ((f & PF_GT) && v > want_num) ||
+                   ((f & PF_EQ) && v == want_num);
+  const bool inner = (f & PF_NUM) ? cmp : ((f & PF_PRES) || h == want_hash);
+  return (present && inner) != ((f & PF_NEG) != 0);
+}
+
+// One predicate against one node (kernels.py:_check_predicate).  Inactive
+// slots (slot < 0) pass.
+__device__ __forceinline__ bool check_predicate(const NodeTables& M, int row,
+                                                int slot, int op, int want_hash,
+                                                float want_num) {
+  if (slot < 0) return true;
+  if (slot >= M.a) slot = M.a - 1;  // gathers clamp, as in JAX
+  const int f = pred_flags(op);
+  const int h = M.attr_hash[(size_t)row * M.a + slot];
+  const float v = !(f & PF_NUM) ? 0.0f
+                  : (f & PF_VER) ? M.attr_ver[(size_t)row * M.a + slot]
+                                 : M.attr_num[(size_t)row * M.a + slot];
+  return pred_holds(h, v, f, want_hash, want_num);
 }
 
 // Node i passes eligibility, datacenter, the first c_width constraint

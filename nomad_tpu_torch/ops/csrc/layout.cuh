@@ -14,6 +14,7 @@
 #define DEV_SLOTS 8    // device-type slots
 #define PRIO_BUCKETS 16
 #define DYN_PORT_CAPACITY 12001
+#define MAX_LANE_DELTAS 1024  // in-flight delta rows of a fused_place lane
 
 // int32 request fields (offset, width)
 #define RI_C_SLOT 0
@@ -61,7 +62,7 @@ static const int kNomadLayout[] = {
     RF_S_DESIRED, RF_S_IMPLICIT, RF_S_SUM_WEIGHTS, REQ_FLOAT_WIDTH,
     // widths
     MAX_C, MAX_A, MAX_DC, MAX_S, MAX_V, MAX_PORTS, DEV_SLOTS, PRIO_BUCKETS,
-    DYN_PORT_CAPACITY, PACKED_WIDTH, FUSED_PACKED_WIDTH,
+    DYN_PORT_CAPACITY, PACKED_WIDTH, FUSED_PACKED_WIDTH, MAX_LANE_DELTAS,
 };
 
 // Copies the layout table into out[0..cap) and returns its length.

@@ -16,7 +16,8 @@ comments there):
 leading ``B`` axis, and the request travels packed as two ``(B, ·)``
 tensors (:func:`pack_requests`), the layout the CUDA kernels read.  The
 ``lax.scan`` over placements is a Python loop here (the plain version) and
-a loop inside one thread block on the card (``csrc/fused_place.cu``).
+a loop inside each lane's thread-block cluster on the card
+(``csrc/fused_place.cu``).
 
 On a CPU tensor the wrappers :func:`fused_place`,
 :func:`allocs_fit_verify`, :func:`system_feasible`, :func:`score_batch`
@@ -29,6 +30,7 @@ version, the kernel and XLA add in the same order.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -655,6 +657,9 @@ PACKED_WIDTH = 7
 # the capacity first, -1.0 dead lane.
 FUSED_PACKED_VERIFIED = 7
 FUSED_PACKED_WIDTH = 8
+# In-flight delta rows a lane of fused_place / place_batch may carry
+# (csrc/fused_place.cu keeps them in shared memory; the coalescer sends 32).
+MAX_LANE_DELTAS = 1024
 
 
 def _pick(res: ScoreResult, eligible, live=None):
@@ -799,18 +804,32 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
 
+# (weak references to the columns, device, rows) of the matrix
+# _check_matrix last passed: a DeviceArrays is immutable and the dispatch
+# loops pass the same one again and again, so its twelve column checks run
+# once per set of columns.  Weak references let a replaced matrix be freed
+# (a dead one matches no tensor); one tuple, read once, so threads see a
+# whole entry.
+_checked_matrix = ((), None, 0)
+
+
 def _check_matrix(arrays: DeviceArrays, used, device) -> int:
+    global _checked_matrix
     n = arrays.totals.shape[0]
+    _check("used", used, torch.float32, (n, 3), device)
+    memo = _checked_matrix
+    if (memo[1] == device and len(memo[0]) == len(arrays)
+            and all(r() is t for r, t in zip(memo[0], arrays))):
+        return memo[2]
     a = arrays.attr_hash.shape[1]
     f32, i32 = torch.float32, torch.int32
     _check("totals", arrays.totals, f32, (n, 3), device)
-    _check("used", used, f32, (n, 3), device)
     _check("eligible", arrays.eligible, torch.bool, (n,), device)
     _check("attr_hash", arrays.attr_hash, i32, (n, a), device)
     _check("attr_num", arrays.attr_num, f32, (n, a), device)
@@ -822,15 +841,74 @@ def _check_matrix(arrays: DeviceArrays, used, device) -> int:
     _check("port_words", arrays.port_words, i32,
            (n, arrays.port_words.shape[1]), device)
     _check("dyn_used", arrays.dyn_used, i32, (n,), device)
+    _checked_matrix = (tuple(weakref.ref(t) for t in arrays), device, n)
     return n
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _matrix_ptrs(arrays: DeviceArrays, used):
+    """The matrix columns' device pointers in the kernels' argument order."""
+    return (arrays.totals.data_ptr(), used.data_ptr(),
+            arrays.eligible.data_ptr(), arrays.attr_hash.data_ptr(),
+            arrays.attr_num.data_ptr(), arrays.attr_ver.data_ptr(),
+            arrays.class_id.data_ptr(), arrays.dev_total.data_ptr(),
+            arrays.dev_used.data_ptr(), arrays.prio_used.data_ptr(),
+            arrays.port_words.data_ptr(), arrays.dyn_used.data_ptr())
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+_shapes: dict = {}
+
+
+def fused_place_shape(n: int, b: int, d: int, n_placements: int,
+                      features: Features) -> dict:
+    """The launch shape ``csrc/fused_place.cu`` takes for these sizes:
+    ``cluster`` (CTAs a lane runs on), ``span`` (node rows a CTA owns),
+    ``smem`` (dynamic shared memory bytes), ``state_in_smem`` (the
+    candidate state fits shared memory; else ``scratch_cta`` bytes of
+    device scratch per CTA) and ``tier`` (the loop-width instantiation:
+    0 bench, 1 full).  Needs the built library (the card)."""
+    key = ("fused_place", n, b, d, n_placements, features)
+    got = _shapes.get(key)
+    if got is None:
+        from .build import load_library
+
+        buf = (ctypes.c_longlong * 6)()
+        load_library("fused_place").nomad_fused_place_shape(
+            n, b, d, n_placements, features.c_width, features.a_width,
+            features.s_width, int(features.preempt), int(features.ports), buf)
+        got = dict(cluster=buf[0], span=buf[1], smem=buf[2],
+                   state_in_smem=bool(buf[3]), scratch_cta=buf[4],
+                   tier=buf[5])
+        _shapes[key] = got
+    return got
+
+
+def score_batch_shape(n: int, b: int, features: Features) -> dict:
+    """The launch shape ``csrc/score_batch.cu`` takes for these sizes:
+    ``cluster`` (CTAs that split a lane tile's node axis), ``lanes``
+    (lanes per CTA), ``node_tile`` (rows staged per tile), ``smem``
+    (dynamic shared memory bytes) and ``tier`` (the loop-width
+    instantiation: 0 bench, 1 full).  Needs the built library (the card)."""
+    key = ("score_batch", n, b, features)
+    got = _shapes.get(key)
+    if got is None:
+        from .build import load_library
+
+        buf = (ctypes.c_int * 5)()
+        load_library("score_batch").nomad_score_batch_shape(
+            n, b, features.c_width, features.a_width, features.s_width,
+            int(features.preempt), int(features.ports), buf)
+        got = dict(cluster=buf[0], lanes=buf[1], node_tile=buf[2],
+                   smem=buf[3], tier=buf[4])
+        _shapes[key] = got
+    return got
 
 
 def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
@@ -861,28 +939,37 @@ def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
     from .build import load_library
 
     lib = load_library("fused_place")
+    shape = fused_place_shape(n, b, d, n_placements, features)
     out = torch.empty((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
-    # Per-lane usage scratch: the lane's base plus its own placements.
-    scratch = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
-    a = arrays.attr_hash.shape[1]
+    # Candidate state that does not fit a CTA's shared memory lives in a
+    # per-CTA device scratch (large N); none at the main path's sizes.
+    scratch = None
+    if not shape["state_in_smem"]:
+        scratch = torch.empty((b * shape["cluster"] * shape["scratch_cta"],),
+                              dtype=torch.uint8, device=dev)
     rc = lib.nomad_fused_place(
-        _ptr(arrays.totals), _ptr(used), _ptr(arrays.eligible),
-        _ptr(arrays.attr_hash), _ptr(arrays.attr_num), _ptr(arrays.attr_ver),
-        _ptr(arrays.class_id), _ptr(arrays.dev_total), _ptr(arrays.dev_used),
-        _ptr(arrays.prio_used), _ptr(arrays.port_words), _ptr(arrays.dyn_used),
-        _ptr(delta_rows), _ptr(delta_vals), _ptr(tg_counts),
-        _ptr(spread_counts), _ptr(penalties), _ptr(req_i), _ptr(req_f),
-        _ptr(class_eligs), _ptr(host_masks), _ptr(lane_mask),
-        _ptr(out), _ptr(scratch),
-        n, a, arrays.port_words.shape[1], b, d, k, n_placements,
-        features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports),
-        _stream(),
+        *_matrix_ptrs(arrays, used),
+        delta_rows.data_ptr(), delta_vals.data_ptr(), tg_counts.data_ptr(),
+        spread_counts.data_ptr(), penalties.data_ptr(), req_i.data_ptr(),
+        req_f.data_ptr(), class_eligs.data_ptr(), host_masks.data_ptr(),
+        lane_mask.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, d, k,
+        n_placements, features.c_width, features.a_width, features.s_width,
+        int(features.preempt), int(features.ports), _stream(),
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
+
+
+def _check_delta_width(name: str, delta_rows) -> None:
+    """Both devices refuse more delta rows a lane than the card's kernel
+    holds, so a batch the CPU takes also launches on the card."""
+    if delta_rows.shape[-1] > MAX_LANE_DELTAS:
+        raise ValueError(f"{name}: {delta_rows.shape[-1]} delta rows a lane, "
+                         f"at most {MAX_LANE_DELTAS}")
 
 
 def fused_place(arrays: DeviceArrays, used, delta_rows, delta_vals,
@@ -891,7 +978,9 @@ def fused_place(arrays: DeviceArrays, used, delta_rows, delta_vals,
                 features: Features = FULL_FEATURES):
     """B placement scans in one launch — the ``fused_place`` kernel
     (``csrc/fused_place.cu``) on the card, :func:`place_lanes` on the CPU.
-    Returns (B, n_placements, PACKED_WIDTH) f32."""
+    A lane carries at most ``MAX_LANE_DELTAS`` delta rows.  Returns (B,
+    n_placements, PACKED_WIDTH) f32."""
+    _check_delta_width("fused_place", delta_rows)
     if used.device.type == "cpu":
         return place_lanes(arrays, used, delta_rows, delta_vals, tg_counts,
                            spread_counts, penalties, req_i, req_f,
@@ -931,8 +1020,10 @@ def place_batch(arrays: DeviceArrays, used, delta_rows, delta_vals,
     ``csrc/fused_place.cu`` with every lane live; on the CPU it runs
     :func:`place_batch_plain`.  A lane whose host mask is all False (the
     reference's padding) places nothing and counts every eligible node as
-    filtered, as the reference's does.  Returns (B, n_placements,
+    filtered, as the reference's does.  A lane carries at most
+    ``MAX_LANE_DELTAS`` delta rows.  Returns (B, n_placements,
     PACKED_WIDTH) f32."""
+    _check_delta_width("place_batch", delta_rows)
     if used.device.type == "cpu":
         return place_batch_plain(arrays, used, delta_rows, delta_vals,
                                  tg_counts, spread_counts, penalties, req_i,
@@ -1141,23 +1232,28 @@ def score_batch(arrays: DeviceArrays, used, tg_counts, spread_counts,
     from .build import load_library
 
     lib = load_library("score_batch")
-    out = torch.empty((b, PACKED_WIDTH), dtype=torch.float32, device=dev)
+    # The kernel writes each field in its own type: rows, score bits,
+    # binpack bits and the three counters as (6, B) int32, the preemption
+    # flags as (B,) bytes of 0 or 1.
+    out = torch.empty((6, b), dtype=torch.int32, device=dev)
+    pre = torch.empty((b,), dtype=torch.bool, device=dev)
     rc = lib.nomad_score_batch(
-        _ptr(arrays.totals), _ptr(used), _ptr(arrays.eligible),
-        _ptr(arrays.attr_hash), _ptr(arrays.attr_num), _ptr(arrays.attr_ver),
-        _ptr(arrays.class_id), _ptr(arrays.dev_total), _ptr(arrays.dev_used),
-        _ptr(arrays.prio_used), _ptr(arrays.port_words), _ptr(arrays.dyn_used),
-        _ptr(tg_counts), _ptr(spread_counts), _ptr(penalties), _ptr(req_i),
-        _ptr(req_f), _ptr(class_eligs), _ptr(host_masks), _ptr(out),
+        *_matrix_ptrs(arrays, used),
+        tg_counts.data_ptr(), spread_counts.data_ptr(), penalties.data_ptr(),
+        req_i.data_ptr(), req_f.data_ptr(), class_eligs.data_ptr(),
+        host_masks.data_ptr(), out.data_ptr(), pre.data_ptr(),
         n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, k,
         features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports),
-        _stream(),
+        int(features.preempt), int(features.ports), _stream(),
     )
     if rc != 0:
         raise RuntimeError(f"score_batch launch failed: CUDA error {rc}")
     score_batch.launches += 1
-    return _batch_result(out)
+    return BatchScoreResult(
+        rows=out[0], scores=out[1].view(torch.float32),
+        binpack=out[2].view(torch.float32), preempted=pre,
+        nodes_evaluated=out[3], nodes_filtered=out[4], nodes_exhausted=out[5],
+    )
 
 
 score_batch.launches = 0

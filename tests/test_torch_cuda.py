@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_edge_cases as edge_cases
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.ops import kernels as k
 from nomad_tpu_torch.ops.encode import (
@@ -175,6 +176,32 @@ def test_wrapper_rejects_bad_operands(cuda):
     bad[4] = args[4].cpu()  # a CPU operand next to CUDA ones
     with pytest.raises(ValueError):
         k.fused_place(*bad, SCAN, feats)
+
+
+def widen_deltas(args, width):
+    """``batch_args``' operands with each lane's delta rows padded to
+    ``width`` (-1 rows, zero values)."""
+    b, d = args[2].shape
+    rows = torch.full((b, width), -1, dtype=torch.int32, device=args[2].device)
+    vals = torch.zeros((b, width, 3), device=args[3].device)
+    rows[:, :d] = args[2]
+    vals[:, :d] = args[3]
+    return args[:2] + (rows, vals) + args[4:]
+
+
+@pytest.mark.cuda
+def test_fused_place_at_the_delta_cap(cuda):
+    """A lane carrying MAX_LANE_DELTAS delta rows (the usage map's cap)
+    still equals the plain version; one more is refused before launch."""
+    m = cluster(cuda)
+    args, feats = batch_args(m, requests(m), cuda)
+    wide = widen_deltas(args, k.MAX_LANE_DELTAS)
+    assert_same(k.fused_place(*wide, SCAN, feats),
+                k.place_lanes(*wide, SCAN, feats))
+    before = k.fused_place.launches
+    with pytest.raises(ValueError):
+        k.fused_place(*widen_deltas(args, k.MAX_LANE_DELTAS + 1), SCAN, feats)
+    assert k.fused_place.launches == before
 
 
 @pytest.mark.cuda
@@ -423,3 +450,125 @@ def test_verify_plan_fit_matches_plain(cuda):
     np.testing.assert_array_equal(
         got.cpu().numpy(), host_verify(host_elig, rows, deltas, elig_required))
     assert not bool(got.all()) and bool(got.any())
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernels on the edge shapes of tests/torch_edge_cases.py,
+# past the shared-memory limit, and their operand checks
+# ---------------------------------------------------------------------------
+
+
+def edge_args(case):
+    """A case of tests/torch_edge_cases.py built with the port on the card:
+    (arrays, numpy request, operands on the card)."""
+    w = edge_cases.build(edge_cases.port_pkg(), case)
+    arrays = w["m"].sync()
+    ri, rf = k.pack_requests(w["reqs"])
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+
+    ops = {name: on(w[name]) for name in (
+        "drows", "dvals", "tg", "counts", "pen", "ce", "hm", "lane_mask")}
+    ops["ri"], ops["rf"] = on(ri), on(rf)
+    return arrays, w, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("case", edge_cases.CASES)
+def test_score_batch_edge_shapes(cuda, case, full):
+    arrays, w, o = edge_args(case)
+    feats = k.FULL_FEATURES if full else k.features_of(w["reqs"])
+    args = (arrays, arrays.used, o["tg"], o["counts"], o["pen"], o["ri"],
+            o["rf"], o["ce"], o["hm"])
+    got = k.score_batch(*args, feats)
+    want = k.score_batch_plain(*args, feats)
+    assert_same(k.pack_batch_result(got)[:, None],
+                k.pack_batch_result(want)[:, None])
+    if case == "ties":
+        np.testing.assert_array_equal(got.rows.cpu().numpy()[:7],
+                                      [0, 140, 257, 0, 1, 129, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", edge_cases.CASES)
+def test_fused_place_edge_shapes(cuda, case):
+    """fused_place at the case's own widths and place_batch at full widths,
+    each against its plain version, exactly."""
+    arrays, w, o = edge_args(case)
+    args = (arrays, arrays.used, o["drows"], o["dvals"], o["tg"], o["counts"],
+            o["pen"], o["ri"], o["rf"], o["ce"], o["hm"])
+    feats = k.features_of(w["reqs"])
+    got = k.fused_place(*args, o["lane_mask"], w["scan"], feats)
+    want = k.place_lanes(*args, o["lane_mask"], w["scan"], feats)
+    assert_same(got, want)
+    got = k.place_batch(*args, w["scan"])
+    want = k.place_batch_plain(*args, w["scan"])
+    assert_same(got, want)
+
+
+def replicated_cluster(capacity, seed=9):
+    """A matrix of `capacity` rows: 64 registered nodes, their host rows
+    copied over the rest (as chip_smoke.py builds its cluster), with usage
+    on every row."""
+    rng = np.random.default_rng(seed)
+    m = NodeMatrix(capacity=capacity)
+    for i in range(64):
+        node = mock.node()
+        node.datacenter = "dc1" if i % 3 else "dc2"
+        node.attributes = dict(node.attributes)
+        node.attributes["rack"] = f"r{i % 8}"
+        m.upsert_node(node)
+    host = m.snapshot_host()
+    rows = np.arange(64, capacity)
+    for key in host:
+        host[key][rows] = host[key][rows % 64]
+    host["used"][:] = np.round(host["totals"] * rng.uniform(0.0, 0.6,
+                                                            (capacity, 1)))
+    m._dirty.update(range(capacity))
+    m.version += 1
+    return m
+
+
+@pytest.mark.cuda
+def test_kernels_past_the_shared_memory_limit(cuda):
+    """At 80,000 rows one lane's candidate state no longer fits a cluster's
+    shared memory: fused_place keeps it in device scratch in the same
+    kernel, and both kernels still equal their plain versions."""
+    m = replicated_cluster(80_000)
+    arrays = m.sync()
+    reqs = requests(m)
+    lanes = 4
+    args, feats = batch_args(m, reqs, cuda, lanes=lanes)
+    args = (arrays, arrays.used) + args[2:]
+    shape = k.fused_place_shape(arrays.used.shape[0], lanes,
+                                args[2].shape[1], SCAN, feats)
+    assert not shape["state_in_smem"] and shape["scratch_cta"] > 0
+    assert_same(k.fused_place(*args, SCAN, feats),
+                k.place_lanes(*args, SCAN, feats))
+    sb = (arrays, arrays.used, args[4], args[5], args[6], args[7], args[8],
+          args[9], args[10])
+    assert_same(k.pack_batch_result(k.score_batch(*sb, feats))[:, None],
+                k.pack_batch_result(k.score_batch_plain(*sb, feats))[:, None])
+
+
+@pytest.mark.cuda
+def test_score_batch_rejects_bad_operands(cuda):
+    """The wrapper checks every operand on every call, the matrix columns
+    too after a good call with the same matrix."""
+    m = cluster(cuda)
+    args, feats = score_batch_args(m, requests(m), cuda)
+    k.score_batch(*args, feats)
+    bad = list(args)
+    bad[2] = args[2].to(torch.int64)  # tg_counts must be int32
+    with pytest.raises(TypeError):
+        k.score_batch(*bad, feats)
+    bad = list(args)
+    bad[4] = args[4].cpu()  # a CPU operand next to CUDA ones
+    with pytest.raises(ValueError):
+        k.score_batch(*bad, feats)
+    bad = list(args)
+    bad[0] = args[0]._replace(attr_num=args[0].attr_num.double())
+    with pytest.raises(TypeError):
+        k.score_batch(*bad, feats)

@@ -10,6 +10,9 @@ to).  The hand-written kernels are held against the plain version on the
 card by tests/test_torch_cuda.py.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +31,9 @@ from nomad_tpu_torch.structs import funcs as tfuncs
 from nomad_tpu_torch.structs.types import Node as TNode, NodeResources as TRes
 from nomad_tpu_torch.structs.types import Resources as TResources
 
+import torch_edge_cases as edge_cases
 from torch_parity import (
+    jax_edge_pkg,
     ATOL,
     RTOL,
     SCAN,
@@ -339,6 +344,50 @@ def test_wrappers_refuse_other_devices(world):
                              torch.empty((1,), dtype=torch.bool, device="meta"))
 
 
+@pytest.mark.parametrize("entry", ["fused_place", "place_batch"])
+def test_delta_rows_past_the_kernel_cap_are_refused(world, entry):
+    """Both devices refuse a lane carrying more delta rows than
+    csrc/fused_place.cu keeps (MAX_LANE_DELTAS); at the cap the entry runs
+    and the padding changes nothing."""
+    pa = world["pm"].sync()
+    ri, rf = port_requests(world["reqs"])
+    b = ri.shape[0]
+    tail = (t(world["tg"]), t(world["counts"]), t(world["pen"]), ri, rf,
+            t(world["ce"]), t(world["hm"]))
+    if entry == "fused_place":
+        tail += (torch.ones((b,), dtype=torch.bool),)
+    fn = getattr(tk, entry)
+
+    def run(width):
+        rows = torch.full((b, width), -1, dtype=torch.int32)
+        vals = torch.zeros((b, width, 3))
+        rows[1, :2] = torch.tensor([5, 5], dtype=torch.int32)
+        vals[1, :2] = torch.tensor([[300.0, 200.0, 0.0], [100.0, 50.0, 0.0]])
+        return fn(pa, pa.used, rows, vals, *tail, SCAN)
+
+    np.testing.assert_array_equal(run(tk.MAX_LANE_DELTAS).numpy(),
+                                  run(4).numpy())
+    with pytest.raises(ValueError, match="delta rows"):
+        run(tk.MAX_LANE_DELTAS + 1)
+
+
+def test_matrix_check_memo_holds_no_matrix(world):
+    """The wrappers check a matrix's columns once per set of columns; the
+    memo keeps none of them alive, and a changed column is checked again."""
+    cpu = torch.device("cpu")
+    pa = world["pm"].sync()
+    arrays = pa._replace(attr_num=pa.attr_num.clone())
+    assert tk._check_matrix(arrays, arrays.used, cpu) == pa.used.shape[0]
+    col = weakref.ref(arrays.attr_num)
+    del arrays
+    gc.collect()
+    assert col() is None
+    tk._check_matrix(pa, pa.used, cpu)
+    with pytest.raises(TypeError):
+        tk._check_matrix(pa._replace(attr_num=pa.attr_num.double()),
+                         pa.used, cpu)
+
+
 def test_carried_request_roundtrips(world):
     req = lane_req(world["reqs"], 2)
     back = carry.request_from_numpy(req._asdict())
@@ -356,3 +405,28 @@ def test_xla_divides_by_18_as_a_multiply():
     assert (xla != x / np.float32(18.0)).any()
     port = (torch.from_numpy(x) * tk.INV_18).numpy()
     np.testing.assert_array_equal(port, xla)
+
+
+@pytest.mark.parametrize("mode", FEATURE_MODES)
+@pytest.mark.parametrize("case", edge_cases.CASES)
+def test_edge_shapes_fused_match(case, mode):
+    """The fused entry on each edge case of tests/torch_edge_cases.py: the
+    placement scan on ragged node and lane counts, B=1, ties across node
+    tiles and cluster CTAs, spread values inserted mid-scan into tables
+    with duplicates and a free slot between used ones, a full table,
+    s_width=2, and lanes that fail at step 0 — with in-flight deltas, a
+    dead lane, distinct_hosts and preemption."""
+    w = edge_cases.build(jax_edge_pkg(), case)
+    f = jk.FULL_FEATURES if mode == "full" else jk.features_of(w["reqs"])
+    ops = (w["drows"], w["dvals"], w["tg"], w["counts"], w["pen"], w["ce"],
+           w["hm"])
+    got, want = run_fused(w["m"], port_matrix(w["m"]), w["reqs"], ops,
+                          w["lane_mask"], f, w["scan"])
+    assert_packed_equal(got, want)
+    rows = want[:, :, jk.PACKED_ROW]
+    if case == "ties":
+        np.testing.assert_array_equal(rows[:3, 0], [0, 140, 257])
+    if case == "fails_first":
+        assert (rows[:2] == -1).all()
+    if case == "spread_tables":
+        assert (rows[:3] >= 0).all()

@@ -32,8 +32,10 @@ from nomad_tpu_torch import mock as tmock
 from nomad_tpu_torch.ops import kernels as tk
 from nomad_tpu_torch.server.server import Server, ServerConfig
 
+import torch_edge_cases as edge_cases
 from test_torch_score_batch import bench_cluster, bench_shapes, widened
 from torch_parity import (
+    jax_edge_pkg,
     SCAN,
     assert_packed_equal,
     build_cluster,
@@ -257,3 +259,20 @@ def test_staged_burst_matches_reference(staged_runs):
     assert want["megabatch"] is False and want["fused"] == 0
     assert got["per_job"] == want["per_job"]
     assert got["fits"] and want["fits"]
+
+
+@pytest.mark.parametrize("case", edge_cases.CASES)
+def test_edge_shapes_match(case):
+    """The staged dispatch at full features (as the staged path runs it) on
+    each edge case of tests/torch_edge_cases.py; a dead lane of the case
+    becomes a padding lane with an all-False host mask."""
+    w = edge_cases.build(jax_edge_pkg(), case)
+    hm = w["hm"].copy()
+    hm[~w["lane_mask"]] = False
+    ops = (w["drows"], w["dvals"], w["tg"], w["counts"], w["pen"], w["ce"],
+           hm)
+    got, want = run_both(w["m"], port_matrix(w["m"]), w["reqs"], ops,
+                         jk.FULL_FEATURES, w["scan"])
+    assert_packed_equal(got, want)
+    if case == "ties":
+        np.testing.assert_array_equal(want[:3, 0, jk.PACKED_ROW], [0, 140, 257])

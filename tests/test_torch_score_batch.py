@@ -29,7 +29,9 @@ from nomad_tpu_torch.ops import kernels as tk
 from nomad_tpu_torch.parallel import build_batch_inputs as t_build_batch_inputs
 from nomad_tpu_torch.state import carry
 
+import torch_edge_cases as edge_cases
 from torch_parity import (
+    jax_edge_pkg,
     ATOL,
     RTOL,
     build_cluster,
@@ -357,3 +359,31 @@ def test_wrapper_refuses_other_devices(lanes):
                        torch.empty((b, tk.REQ_FLOAT_WIDTH), device="meta"),
                        torch.empty((b, 2), dtype=torch.bool, device="meta"),
                        torch.empty((b, n), dtype=torch.bool, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# Edge shapes of the tiled kernel (tests/torch_edge_cases.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", FEATURE_MODES)
+@pytest.mark.parametrize("case", edge_cases.CASES)
+def test_edge_shapes_match(case, mode):
+    """Each edge case (ragged node and lane counts, B=1, ties across node
+    tiles, duplicate spread hashes and s_width=2, lanes with nothing to
+    pick) at full and at the batch's own widths."""
+    w = edge_cases.build(jax_edge_pkg(), case)
+    feats = (jk.FULL_FEATURES if mode == "full"
+             else jk.features_of(w["reqs"]))
+    got, want = run_lanes(w, feats)
+    assert_batch_equal(got, want)
+    rows = got.rows.numpy()
+    if case == "ties":
+        # The lowest of the tied rows, whichever tile or CTA holds it.
+        np.testing.assert_array_equal(rows[:7], [0, 140, 257, 0, 1, 129, 1])
+    if case == "fails_first":
+        assert rows[0] == -1 and rows[1] == -1
+        assert int(got.nodes_evaluated[1]) == 0
+        assert rows[4] >= 250
+    if case == "single_lane":
+        assert rows.shape == (1,) and rows[0] >= 0

@@ -74,6 +74,17 @@ def make_job(cpu=500, mem=256, count=1, constraints=None, affinities=None,
     return Job(task_groups=[tg], **kw)
 
 
+def jax_edge_pkg():
+    """The JAX package's types for ``torch_edge_cases.build``."""
+    from nomad_tpu import structs
+    from nomad_tpu.ops import encode
+    from nomad_tpu.state import matrix
+
+    import torch_edge_cases
+
+    return torch_edge_cases.package(structs, encode, matrix)
+
+
 def build_cluster(seed=7, n_nodes=200, capacity=256, n_allocs=80):
     """A seeded reference matrix: heterogeneous nodes, existing allocs at
     several priorities (prio_used), and a few occupied static ports."""
