@@ -39,7 +39,15 @@ Phases:
    keeps it in device scratch (the phase fails if the launch shape says
    otherwise).  Each kernel's launch shape (cluster size, lanes per CTA or
    node span, node tile, dynamic shared memory, loop-width tier) is logged
-   here and in the timing phases.
+   here and in the timing phases.  Then ``allocs_fit_verify`` on the
+   event streams of ``VERIFY_CASES`` (the bench batch's sizes, one row
+   every lane picks, B=64 with 1,024 delta rows a lane, B=1, every lane
+   dead, order-sensitive values with rows out of range) against
+   ``verify_lanes``, exactly, in both tiers of the kernel (event keys in
+   shared memory, and in device scratch for the large case), and
+   ``system_feasible`` at the node counts of ``SYSTEM_ROWS`` (1 to 80,000)
+   on every constraint kind, all sixteen slots, a device ask, a static
+   port and an escaped class, against its plain version, exactly.
 4. system kernel — ``system_feasible`` against its plain version on the
    same cluster, over ten system-job requests (a static port some nodes
    hold, datacenter lists, numeric, version, presence and NaN-column
@@ -84,8 +92,13 @@ Phases:
    allocs_fit_verify's plain versions the median of 3 runs), beside its
    bound: the larger of the bytes it must move over the card's memory
    rate and the float32 operations it needs over the card's float32
-   rate, and its device time from the profiler.  ``system_feasible``
-   also gets the time of one whole system dispatch.
+   rate, and its device time from the profiler.  Then the fused
+   dispatch's device total (``fused_place`` + ``allocs_fit_verify``) and
+   its CUDA-event time, ``allocs_fit_verify`` on the hot-row stream and
+   in its device-scratch tier, and its wrapper's host time.
+   ``system_feasible`` also gets the time of one whole system dispatch,
+   and its wrapper's host time split into its parts beside the CUDA
+   events' floor on an empty function.
 
 7. batched scoring — ``score_batch`` (one launch scores every node for
    B independent evals and picks each one's best) on a fresh cluster
@@ -982,6 +995,101 @@ def phase_edge_shapes(results: dict) -> None:
                 raise AssertionError(f"{name} disagrees on edge case {case}: "
                                      f"{msg}")
     check_past_shared_memory(results)
+    check_verify_cases(results)
+    check_system_rows(results)
+
+
+def verify_operands(case: str):
+    """Case ``case`` of ``torch_edge_cases.VERIFY_CASES`` as the seven
+    operands of ``allocs_fit_verify`` on the card."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    w = edge_cases_module().verify_case(case)
+    b = w["asks"].shape[0]
+    req_f = np.zeros((b, k.REQ_FLOAT_WIDTH), np.float32)
+    off = k.REQ_FLOAT_OFF["ask"][0]
+    req_f[:, off:off + 3] = w["asks"]
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+                 for x in (w["totals"], w["used"], w["packed"], req_f,
+                           w["drows"], w["dvals"], w["lane_mask"]))
+
+
+def check_verify_cases(results: dict) -> None:
+    """``allocs_fit_verify`` on the event streams of
+    ``torch_edge_cases.VERIFY_CASES`` (the bench batch's sizes, one hot row
+    picked by every lane, B=64 with 1,024 delta rows a lane, B=1, every
+    lane dead, order-sensitive values with rows out of range): every
+    column exactly as ``verify_lanes``'s, each in the tier its event count
+    calls for.  Both tiers must launch: the large case keeps its event
+    keys in device scratch, the others in shared memory."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    tiers = set()
+    r = results.setdefault("allocs_fit_verify", {"max_abs_err": 0.0})
+    for case in edge_cases_module().VERIFY_CASES:
+        ops = verify_operands(case)
+        n, (b, p, _), d = ops[0].shape[0], ops[2].shape, ops[4].shape[1]
+        plan = k.allocs_fit_verify_shape(n, b, p, d)
+        before = k.allocs_fit_verify.launches
+        got = k.allocs_fit_verify(*ops)
+        _sync()
+        if k.allocs_fit_verify.launches != before + 1:
+            raise AssertionError(f"allocs_fit_verify did not launch on {case}")
+        want = k.verify_lanes(*[x.cpu() for x in ops]).numpy()
+        got = got.cpu().numpy()
+        err = float(np.abs(got - want).max())
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        zeros = int((want[..., k.FUSED_PACKED_VERIFIED] == 0.0).sum())
+        log(f"edge[verify {case}] allocs_fit_verify vs plain: max |err| "
+            f"{err:.3g}, {'equal' if np.array_equal(got, want) else 'DIFFERENT'}"
+            f"; B={b}, P={p}, D={d}, N={n}; VERIFIED 0.0 on {zeros} "
+            f"placements; plan {plan}")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"allocs_fit_verify disagrees on {case}")
+        if plan["tier"] != (1 if case == "large" else 0):
+            raise AssertionError(f"allocs_fit_verify on {case}: tier {plan}")
+        tiers.add(plan["tier"])
+    if tiers != {0, 1}:
+        raise AssertionError(f"allocs_fit_verify tiers launched: {tiers}")
+
+
+def check_system_rows(results: dict) -> None:
+    """``system_feasible`` at the node counts of
+    ``torch_edge_cases.SYSTEM_ROWS`` (1 to 80,000 rows, ragged ones
+    included) on every request of ``system_case`` (every constraint kind,
+    all sixteen slots, a datacenter list, a device ask, a static port, an
+    exhausting ask, an escaped class with a host mask): both rows exactly
+    as the plain version's, every byte 0 or 1."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    edge = edge_cases_module()
+    r = results.setdefault("system_feasible", {"max_abs_err": 0.0})
+    for n in edge.SYSTEM_ROWS:
+        w = edge.system_case(edge.port_pkg(), n)
+        arrays = edge.first_rows(w["m"].sync("cuda"), n)
+        feasible = []
+        for label, req, class_elig, host_mask in w["reqs"]:
+            ri, rf = k.pack_request(req, "cuda")
+            ce = torch.from_numpy(class_elig).to("cuda")
+            hm = torch.from_numpy(host_mask[:n].copy()).to("cuda")
+            got = k.system_feasible(arrays, arrays.used, ri, rf, ce, hm)
+            want = k.system_feasible_plain(arrays, arrays.used, ri, rf, ce, hm)
+            _sync()
+            diff = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32))
+            err = float(diff.abs().max())
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+            if int(got.view(torch.uint8).max()) > 1:
+                raise AssertionError(f"system rows {n} {label}: a byte not 0/1")
+            if not torch.equal(got.cpu(), want.cpu()):
+                raise AssertionError(f"system_feasible disagrees at N={n} on "
+                                     f"{label}")
+            feasible.append(int(want[0].sum()))
+        log(f"edge[system N={n}] system_feasible vs plain: equal on "
+            f"{len(w['reqs'])} requests; feasible {feasible}")
 
 
 def check_past_shared_memory(results: dict) -> None:
@@ -1152,7 +1260,9 @@ def phase_system_kernel(m, results: dict) -> None:
             raise AssertionError(f"system {label}: an output byte is not 0/1")
         if not torch.equal(got, want):
             raise AssertionError(f"system_feasible disagrees on {label}")
-    results["system_feasible"] = {"max_abs_err": err, "matches_plain": True}
+    r = results.setdefault("system_feasible", {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["matches_plain"] = True
 
 
 def server_config():
@@ -2096,6 +2206,60 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
             f"launch on the device (profiler); plain version {plain_ms:.3f} "
             f"ms, bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
             f"{work[1]:.4g} ops{shape} (card: {card})")
+    r = results["allocs_fit_verify"]
+    r["launch"] = k.allocs_fit_verify_shape(
+        int(batch.arrays.used.shape[0]), LANES, SCAN,
+        t["delta_rows"].shape[1])
+    r["host_us"] = host_us_per_call(run_v)
+    log(f"timing allocs_fit_verify: plan {r['launch']}; the wrapper's host "
+        f"time {r['host_us']:.3f} us a call (card: {card})")
+
+    # The fused dispatch: both launches of fused_place_batch.
+    fp_us = results["fused_place"]["device_us"]
+    v_us = results["allocs_fit_verify"]["device_us"]
+    dispatch_ms = time_cuda(
+        lambda: k.fused_place_batch(*args, SCAN, batch.features), runs=20)
+    results["fused_dispatch"] = {"device_us": fp_us + v_us, "ms": dispatch_ms}
+    log(f"timing fused dispatch: fused_place {fp_us:.3f} + allocs_fit_verify "
+        f"{v_us:.3f} = {fp_us + v_us:.3f} us on the device; "
+        f"fused_place_batch {dispatch_ms:.4f} ms by CUDA events (card: {card})")
+
+    # allocs_fit_verify on the hot-row stream and in its device-scratch tier.
+    tiers = {}
+    for case in ("hot_row", "large"):
+        ops = verify_operands(case)
+        n, (b, p, _), d = ops[0].shape[0], ops[2].shape, ops[4].shape[1]
+
+        def run_case():
+            k.allocs_fit_verify(*ops)
+
+        tiers[case] = {
+            "ms": time_cuda(run_case, runs=20),
+            "device_us": device_us_per_launch(run_case,
+                                              "allocs_fit_verify_kernel"),
+            "launch": k.allocs_fit_verify_shape(n, b, p, d),
+        }
+        log(f"timing allocs_fit_verify [{case}]: {tiers[case]['ms']:.4f} ms "
+            f"by CUDA events, {tiers[case]['device_us']:.3f} us a launch on "
+            f"the device (profiler); B={b}, P={p}, D={d}; plan "
+            f"{tiers[case]['launch']} (card: {card})")
+    r["cases"] = tiers
+
+
+def host_us_per_call(fn, runs: int = 2000) -> float:
+    """Mean host microseconds of ``fn`` over ``runs`` calls after a
+    warm-up (launches queue on the stream; the card is not waited for)."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    us = (time.perf_counter() - t0) / runs * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def device_us_per_launch(fn, name: str, runs: int = 20) -> float:
@@ -2146,6 +2310,7 @@ def phase_system_timing(m, card: str, results: dict) -> None:
     dev_us = device_us_per_launch(run, "system_feasible_kernel")
     plain_ms = time_cuda(run_plain, runs=20)
     work = system_feasible_work(arrays, req, len(class_elig))
+    split = system_wrapper_split(arrays, used0, ri, rf, ce, hm, card)
     b_ms, by = bound(*work)
     own = {r: -np.array([100.0, 64.0, 0.0], np.float32) for r in range(N_NODES)}
 
@@ -2163,7 +2328,7 @@ def phase_system_timing(m, card: str, results: dict) -> None:
     dispatch_ms = statistics.median(times)
     results["system_feasible"].update(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
-        device_us=dev_us)
+        device_us=dev_us, host_split_us=split)
     results["system_server"]["dispatch_ms"] = dispatch_ms
     log(f"timing system_feasible: {ms:.4f} ms by CUDA events, "
         f"{dev_us:.3f} us a launch on the device (profiler); plain version "
@@ -2171,6 +2336,63 @@ def phase_system_timing(m, card: str, results: dict) -> None:
         f"{work[1]:.4g} ops; one node-update dispatch ({len(own)} deltas, "
         f"kernel, copy back) {dispatch_ms:.3f} ms on the host clock "
         f"(card: {card})")
+
+
+def system_wrapper_split(arrays, used0, ri, rf, ce, hm, card: str) -> dict:
+    """Where the host time of one ``system_feasible`` call goes: the CUDA
+    events' floor on an empty function, the wrapper's host microseconds
+    a call, and each of its parts alone — the matrix check (memoised with
+    the columns' pointers), the four operand checks, ``load_library``
+    behind its import, the output allocation, the stream handle, the
+    ``ctypes`` launch — beside what the earlier wrapper did instead (a
+    Stream object for the handle)."""
+    import torch
+
+    from nomad_tpu_torch.ops import build
+    from nomad_tpu_torch.ops import kernels as k
+
+    dev = used0.device
+    n = int(used0.shape[0])
+    kk = int(ce.shape[0])
+    _, cols = k._checked_cols(arrays, used0, dev)
+    fn = build.load_library("system_feasible").nomad_system_feasible
+    out = torch.empty((2, n), dtype=torch.bool, device=dev)
+    a, w = int(arrays.attr_hash.shape[1]), int(arrays.port_words.shape[1])
+
+    def checks():
+        k._check("req_i", ri, torch.int32, (1, k.REQ_INT_WIDTH), dev)
+        k._check("req_f", rf, torch.float32, (1, k.REQ_FLOAT_WIDTH), dev)
+        k._check("class_elig", ce, torch.bool, (kk,), dev)
+        k._check("host_mask", hm, torch.bool, (n,), dev)
+
+    def launch():
+        fn(cols, used0.data_ptr(), ri.data_ptr(), rf.data_ptr(),
+           ce.data_ptr(), hm.data_ptr(), out.data_ptr(), n, a, w, kk,
+           k._stream(dev))
+
+    def library():
+        from nomad_tpu_torch.ops.build import load_library
+
+        load_library("system_feasible")
+
+    parts = {
+        "wrapper": lambda: k.system_feasible(arrays, used0, ri, rf, ce, hm),
+        "check_matrix": lambda: k._checked_cols(arrays, used0, dev),
+        "four_checks": checks,
+        "load_library": library,
+        "torch_empty": lambda: torch.empty((2, n), dtype=torch.bool,
+                                           device=dev),
+        "stream": lambda: k._stream(dev),
+        "ctypes_launch": launch,
+        "earlier_stream_object":
+            lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    split = {name: host_us_per_call(f) for name, f in parts.items()}
+    split["event_floor_us"] = time_cuda(lambda: None, runs=50) * 1e3
+    split["event_us"] = time_cuda(parts["wrapper"], runs=50) * 1e3
+    log("timing system_feasible host split (us a call): " + ", ".join(
+        f"{name} {us:.3f}" for name, us in split.items()) + f" (card: {card})")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -2709,7 +2931,9 @@ def main() -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
             "solo_run": r.get("solo_run"), "device_us": r.get("device_us"),
-            "launch": r.get("launch"),
+            "launch": r.get("launch"), "host_us": r.get("host_us"),
+            "host_split_us": r.get("host_split_us"),
+            "cases": r.get("cases"),
             "matches_plain": r.get("matches_plain", False),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -109,16 +109,18 @@ _INT = ctypes.c_int
 _ARGTYPES = {
     "nomad_fused_place": [_PTR] * 24 + [_INT] * 12 + [_PTR],
     "nomad_allocs_fit_verify": [_PTR] * 9 + [_INT] * 4 + [_PTR],
-    "nomad_system_feasible": [_PTR] * 16 + [_INT] * 4 + [_PTR],
+    "nomad_system_feasible": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nomad_score_batch": [_PTR] * 21 + [_INT] * 10 + [_PTR],
     "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
-    # Launch-shape queries of the two kernels that pick their own shape.
+    # Launch-shape queries of the kernels that pick their own shape.
     "nomad_fused_place_shape": [_INT] * 9 + [_PTR],
     "nomad_score_batch_shape": [_INT] * 7 + [_PTR],
+    "nomad_allocs_fit_verify_shape": [_INT] * 4 + [_PTR],
 }
 _ENTRY = {
     "fused_place": ("nomad_fused_place", "nomad_fused_place_shape"),
-    "allocs_fit_verify": ("nomad_allocs_fit_verify",),
+    "allocs_fit_verify": ("nomad_allocs_fit_verify",
+                          "nomad_allocs_fit_verify_shape"),
     "system_feasible": ("nomad_system_feasible",),
     "score_batch": ("nomad_score_batch", "nomad_score_batch_shape"),
     "verify_plan_fit": ("nomad_verify_plan_fit",),

@@ -762,9 +762,10 @@ def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
     a cumulative usage, then commits its placements one by one and checks
     ``u[row] <= totals[row]`` on all three dimensions.  Returns the
     (B, P, FUSED_PACKED_WIDTH) output: columns 0-6 from ``packed`` (dead
-    lanes row -1, zeros), column 7 the verdict (-1.0 on dead lanes)."""
+    lanes row -1, zeros), column 7 the verdict (-1.0 on dead lanes, 1.0 on
+    a pick with no row: row < 0 or >= N)."""
     verify_lanes.calls += 1
-    b, p = packed.shape[0], packed.shape[1]
+    b, p, n = packed.shape[0], packed.shape[1], used.shape[0]
     ask = req_f[:, REQ_FLOAT_OFF["ask"][0]:REQ_FLOAT_OFF["ask"][0] + 3]
     out = torch.zeros((b, p, FUSED_PACKED_WIDTH), dtype=torch.float32,
                       device=packed.device)
@@ -779,7 +780,7 @@ def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
         _add_deltas_in_order(cum, delta_rows, delta_vals, lane=lane)
         for step in range(p):
             r = int(packed[lane, step, PACKED_ROW])
-            if r < 0:
+            if r < 0 or r >= n:
                 out[lane, step, FUSED_PACKED_VERIFIED] = 1.0
                 continue
             cum[r] += ask[lane]
@@ -810,23 +811,30 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-# (weak references to the columns, device, rows) of the matrix
-# _check_matrix last passed: a DeviceArrays is immutable and the dispatch
-# loops pass the same one again and again, so its twelve column checks run
-# once per set of columns.  Weak references let a replaced matrix be freed
-# (a dead one matches no tensor); one tuple, read once, so threads see a
-# whole entry.
-_checked_matrix = ((), None, 0)
+# (weak references to the columns, device, rows, the columns' pointers as
+# a ctypes array) of the matrix _check_matrix last passed: a DeviceArrays
+# is immutable and the dispatch loops pass the same one again and again,
+# so its twelve column checks run once per set of columns.  Weak
+# references let a replaced matrix be freed (a dead one matches no
+# tensor); one tuple, read once, so threads see a whole entry.
+_checked_matrix = ((), None, 0, None)
 
 
 def _check_matrix(arrays: DeviceArrays, used, device) -> int:
+    return _checked_cols(arrays, used, device)[0]
+
+
+def _checked_cols(arrays: DeviceArrays, used, device):
+    """(rows, the columns' device pointers as a ctypes array in
+    DeviceArrays order) of a matrix whose columns and ``used`` pass the
+    checks; raises otherwise."""
     global _checked_matrix
     n = arrays.totals.shape[0]
     _check("used", used, torch.float32, (n, 3), device)
     memo = _checked_matrix
     if (memo[1] == device and len(memo[0]) == len(arrays)
             and all(r() is t for r, t in zip(memo[0], arrays))):
-        return memo[2]
+        return memo[2], memo[3]
     a = arrays.attr_hash.shape[1]
     f32, i32 = torch.float32, torch.int32
     _check("totals", arrays.totals, f32, (n, 3), device)
@@ -841,8 +849,9 @@ def _check_matrix(arrays: DeviceArrays, used, device) -> int:
     _check("port_words", arrays.port_words, i32,
            (n, arrays.port_words.shape[1]), device)
     _check("dyn_used", arrays.dyn_used, i32, (n,), device)
-    _checked_matrix = (tuple(weakref.ref(t) for t in arrays), device, n)
-    return n
+    cols = (ctypes.c_void_p * len(arrays))(*[t.data_ptr() for t in arrays])
+    _checked_matrix = (tuple(weakref.ref(t) for t in arrays), device, n, cols)
+    return n, cols
 
 
 def _matrix_ptrs(arrays: DeviceArrays, used):
@@ -859,8 +868,16 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+# The current stream's raw handle without building a Stream object (the
+# accessor PyTorch's own generated code uses); absent from CPU-only builds.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 _shapes: dict = {}
@@ -957,7 +974,7 @@ def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
         None if scratch is None else scratch.data_ptr(),
         n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, d, k,
         n_placements, features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports), _stream(),
+        int(features.preempt), int(features.ports), _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -1041,18 +1058,39 @@ def place_batch(arrays: DeviceArrays, used, delta_rows, delta_vals,
 place_batch.launches = 0
 
 
+def allocs_fit_verify_shape(n: int, b: int, p: int, d: int) -> dict:
+    """The launch plan ``csrc/allocs_fit_verify.cu`` takes for these
+    sizes: ``tier`` (0: its event arrays in shared memory, 1: in device
+    scratch), ``passes`` and ``digit_bits`` of its radix sort by row,
+    ``events`` (B·(D + P) candidates), ``smem`` (dynamic shared memory
+    bytes) and ``scratch`` (device scratch bytes, tier 1).  Needs the
+    built library (the card)."""
+    key = ("allocs_fit_verify", n, b, p, d)
+    got = _shapes.get(key)
+    if got is None:
+        from .build import load_library
+
+        buf = (ctypes.c_longlong * 6)()
+        load_library("allocs_fit_verify").nomad_allocs_fit_verify_shape(
+            n, b, p, d, buf)
+        got = dict(tier=buf[0], passes=buf[1], digit_bits=buf[2],
+                   events=buf[3], smem=buf[4], scratch=buf[5])
+        _shapes[key] = got
+    return got
+
+
 def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
                       lane_mask):
     """The sequential cross-lane AllocsFit scan and the dead-lane pack —
-    the ``allocs_fit_verify`` kernel (``csrc/allocs_fit_verify.cu``) on
-    the card, :func:`verify_lanes` on the CPU.  Returns
-    (B, P, FUSED_PACKED_WIDTH) f32."""
-    if used.device.type == "cpu":
+    the ``allocs_fit_verify`` kernel (``csrc/allocs_fit_verify.cu``, a
+    row-segmented scan) on the card, :func:`verify_lanes` on the CPU.
+    Returns (B, P, FUSED_PACKED_WIDTH) f32."""
+    dev = used.device
+    if dev.type == "cpu":
         return verify_lanes(totals, used, packed, req_f, delta_rows,
                             delta_vals, lane_mask)
-    if used.device.type != "cuda":
-        raise ValueError(f"allocs_fit_verify: unsupported device {used.device}")
-    dev = used.device
+    if dev.type != "cuda":
+        raise ValueError(f"allocs_fit_verify: unsupported device {dev}")
     n = totals.shape[0]
     b, p = packed.shape[0], packed.shape[1]
     d = delta_rows.shape[1]
@@ -1068,11 +1106,19 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
     lib = load_library("allocs_fit_verify")
     out = torch.empty((b, p, FUSED_PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
-    cum = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    # Event arrays past the shared-memory tier live in a device scratch;
+    # none at the main path's sizes.
+    plan = allocs_fit_verify_shape(n, b, p, d)
+    scratch = None
+    if plan["tier"]:
+        scratch = torch.empty((plan["scratch"] // 4,), dtype=torch.int32,
+                              device=dev)
     rc = lib.nomad_allocs_fit_verify(
-        _ptr(totals), _ptr(used), _ptr(packed), _ptr(req_f),
-        _ptr(delta_rows), _ptr(delta_vals), _ptr(lane_mask), _ptr(out),
-        _ptr(cum), n, b, p, d, _stream(),
+        totals.data_ptr(), used.data_ptr(), packed.data_ptr(),
+        req_f.data_ptr(), delta_rows.data_ptr(), delta_vals.data_ptr(),
+        lane_mask.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, b, p, d,
+        _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"allocs_fit_verify launch failed: CUDA error {rc}")
@@ -1106,13 +1152,13 @@ def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
     (N, 3) proposed usage, ``req_i``/``req_f`` one packed request
     (:func:`pack_request`), ``class_elig`` (K,) bool, ``host_mask`` (N,)
     bool.  Returns (2, N) bool: ``[mask, fits]``."""
-    if used0.device.type == "cpu":
+    dev = used0.device
+    if dev.type == "cpu":
         return system_feasible_plain(arrays, used0, req_i, req_f, class_elig,
                                      host_mask)
-    if used0.device.type != "cuda":
-        raise ValueError(f"system_feasible: unsupported device {used0.device}")
-    dev = used0.device
-    n = _check_matrix(arrays, used0, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"system_feasible: unsupported device {dev}")
+    n, cols = _checked_cols(arrays, used0, dev)
     k = class_elig.shape[0]
     _check("req_i", req_i, torch.int32, (1, REQ_INT_WIDTH), dev)
     _check("req_f", req_f, torch.float32, (1, REQ_FLOAT_WIDTH), dev)
@@ -1125,13 +1171,10 @@ def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
     lib = load_library("system_feasible")
     out = torch.empty((2, n), dtype=torch.bool, device=dev)
     rc = lib.nomad_system_feasible(
-        _ptr(arrays.totals), _ptr(used0), _ptr(arrays.eligible),
-        _ptr(arrays.attr_hash), _ptr(arrays.attr_num), _ptr(arrays.attr_ver),
-        _ptr(arrays.class_id), _ptr(arrays.dev_total), _ptr(arrays.dev_used),
-        _ptr(arrays.port_words), _ptr(arrays.dyn_used), _ptr(req_i),
-        _ptr(req_f), _ptr(class_elig), _ptr(host_mask), _ptr(out),
-        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
-        _stream(),
+        cols, used0.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
+        class_elig.data_ptr(), host_mask.data_ptr(), out.data_ptr(), n,
+        arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
+        _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"system_feasible launch failed: CUDA error {rc}")
@@ -1244,7 +1287,7 @@ def score_batch(arrays: DeviceArrays, used, tg_counts, spread_counts,
         host_masks.data_ptr(), out.data_ptr(), pre.data_ptr(),
         n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, k,
         features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports), _stream(),
+        int(features.preempt), int(features.ports), _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"score_batch launch failed: CUDA error {rc}")
@@ -1305,7 +1348,7 @@ def verify_plan_fit(arrays, rows, deltas, eligible_required):
     rc = lib.nomad_verify_plan_fit(
         _ptr(arrays.used), _ptr(arrays.totals), _ptr(arrays.eligible),
         _ptr(rows), _ptr(deltas), _ptr(eligible_required), _ptr(out),
-        k, n, _stream(),
+        k, n, _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"verify_plan_fit launch failed: CUDA error {rc}")

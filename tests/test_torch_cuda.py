@@ -572,3 +572,90 @@ def test_score_batch_rejects_bad_operands(cuda):
     bad[0] = args[0]._replace(attr_num=args[0].attr_num.double())
     with pytest.raises(TypeError):
         k.score_batch(*bad, feats)
+
+
+# ---------------------------------------------------------------------------
+# The row-segmented allocs_fit_verify and the tiled system_feasible on the
+# edge shapes of tests/torch_edge_cases.py
+# ---------------------------------------------------------------------------
+
+
+def verify_operands(case, device):
+    """Case ``case`` of torch_edge_cases.VERIFY_CASES as the seven
+    operands of allocs_fit_verify on ``device``."""
+    w = edge_cases.verify_case(case)
+    b = w["asks"].shape[0]
+    req_f = np.zeros((b, k.REQ_FLOAT_WIDTH), np.float32)
+    off = k.REQ_FLOAT_OFF["ask"][0]
+    req_f[:, off:off + 3] = w["asks"]
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
+        w["totals"], w["used"], w["packed"], req_f, w["drows"], w["dvals"],
+        w["lane_mask"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", edge_cases.VERIFY_CASES)
+def test_allocs_fit_verify_edge_cases(cuda, case):
+    """Every column exactly as the plain version's, in the tier the event
+    count calls for (the keys in device scratch past shared memory)."""
+    ops = verify_operands(case, cuda)
+    n, (b, p, _), d = ops[0].shape[0], ops[2].shape, ops[4].shape[1]
+    plan = k.allocs_fit_verify_shape(n, b, p, d)
+    assert plan["tier"] == (1 if case == "large" else 0)
+    before = k.allocs_fit_verify.launches
+    got = k.allocs_fit_verify(*ops)
+    assert k.allocs_fit_verify.launches == before + 1
+    want = k.verify_lanes(*[x.cpu() for x in ops])
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    verified = want.numpy()[..., k.FUSED_PACKED_VERIFIED]
+    if case in ("bench", "hot_row", "large"):
+        assert (verified == 0.0).any() and (verified == 1.0).any()
+    if case == "all_dead":
+        assert (verified == -1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", edge_cases.SYSTEM_ROWS)
+def test_system_feasible_edge_rows(cuda, n):
+    """Every constraint kind, an escaped class, a device ask and a static
+    port at ragged and large node counts: both rows exactly as the plain
+    version's, every byte 0 or 1."""
+    w = edge_cases.system_case(edge_cases.port_pkg(), n)
+    arrays = edge_cases.first_rows(w["m"].sync(cuda), n)
+    for label, req, class_elig, host_mask in w["reqs"]:
+        ri, rf = k.pack_request(req, cuda)
+        ce = torch.from_numpy(class_elig).to(cuda)
+        hm = torch.from_numpy(host_mask[:n].copy()).to(cuda)
+        got = k.system_feasible(arrays, arrays.used, ri, rf, ce, hm)
+        want = k.system_feasible_plain(arrays, arrays.used, ri, rf, ce, hm)
+        torch.cuda.synchronize()
+        assert int(got.view(torch.uint8).max()) <= 1, label
+        assert torch.equal(got.cpu(), want.cpu()), label
+
+
+@pytest.mark.cuda
+def test_trimmed_wrappers_still_refuse_bad_operands(cuda):
+    """system_feasible and allocs_fit_verify check every operand on every
+    call, the matrix columns too after a good call with the same matrix."""
+    m = cluster(cuda)
+    arrays = m.sync()
+    n = arrays.used.shape[0]
+    ri, rf = k.pack_request(system_requests(m)[0], cuda)
+    ce = torch.ones((8,), dtype=torch.bool, device=cuda)
+    hm = torch.ones((n,), dtype=torch.bool, device=cuda)
+    k.system_feasible(arrays, arrays.used, ri, rf, ce, hm)
+    with pytest.raises(TypeError):
+        k.system_feasible(arrays, arrays.used, ri.to(torch.int64), rf, ce, hm)
+    with pytest.raises(ValueError):
+        k.system_feasible(arrays, arrays.used, ri, rf, ce, hm.cpu())
+    with pytest.raises(ValueError):
+        k.system_feasible(arrays, arrays.used, ri, rf, ce[:0], hm)
+    with pytest.raises(TypeError):
+        k.system_feasible(arrays._replace(attr_ver=arrays.attr_ver.double()),
+                          arrays.used, ri, rf, ce, hm)
+    ops = verify_operands("bench", cuda)
+    k.allocs_fit_verify(*ops)
+    with pytest.raises(TypeError):
+        k.allocs_fit_verify(*ops[:4], ops[4].to(torch.int64), *ops[5:])
+    with pytest.raises(ValueError):
+        k.allocs_fit_verify(*ops[:6], ops[6].cpu())
