@@ -127,6 +127,30 @@ Phases:
    zeroed around those calls; against its plain version and
    ``host_verify`` on every row (and the applier's own verdicts); every
    output byte 0 or 1; its times and bound at K=10,000.
+9. restart — first a server without a ``data_dir`` registers 10,000
+   ``server_node``s and takes a 64-job burst: the baseline of the
+   journaled run.  Then a ``Server(device="cuda")`` with a ``data_dir`` in a
+   temporary directory (the server phase's config: long heartbeat TTLs)
+   journals 10,000 ``server_node``s, a 64-job burst, ``node-exporter``
+   and a job whose eval blocks, and is crash-stopped (no snapshot).  A
+   second server restores it from the write-ahead log: its tables
+   (``to_snapshot_wire()``), latest index and matrix host arrays equal
+   the first's, and its first sync is one full upload whose columns are
+   bitwise equal to the first server's device columns.  With the counts
+   zeroed it places 64 more count-2 jobs (exactly 128 fitting allocs),
+   ``log-shipper`` on exactly its nodes and the restored blocked eval on
+   a big node that registers, through ``fused_place``,
+   ``allocs_fit_verify`` and ``system_feasible``, never a plain version.
+   Its clean shutdown leaves a snapshot and an empty log; a third server
+   restores from the snapshot alone to the same tables and arrays.  That
+   image is installed into a running server whose 512-node matrix is
+   already on the card (``Server.install_snapshot``: it steps down and
+   its workers finish first): one full upload follows, the kernels' memoised
+   column pointers are the new tensors', and a system job and a 64-job
+   burst place on the installed nodes through the same kernels.  Logs
+   the restore and install seconds, the full upload's bytes and time,
+   the burst's evals/s with the WAL and without, events per topic and the
+   observatory's and controller's states; removes the directory.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -137,11 +161,13 @@ when there is no CUDA device or when any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -911,9 +937,9 @@ def phase_place_batch(batches, card: str, results: dict) -> None:
     shape = k.fused_place_shape(int(batch.arrays.used.shape[0]), LANES,
                                 batch.t["delta_rows"].shape[1], SCAN, full)
     r["launch"] = shape
-    log(f"timing place_batch: {ms:.4f} ms by CUDA events, {dev_us:.3f} us "
+    log(f"timing place_batch: {ms:.4f} ms by CUDA events, {fmt_us(dev_us)} "
         f"a launch on the device (profiler); fused_place at the same full "
-        f"features {fused_ms:.4f} ms, {fused_us:.3f} us; plain version "
+        f"features {fused_ms:.4f} ms, {fmt_us(fused_us)}; plain version "
         f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
         f"{work[1]:.4g} ops; launch {shape} (card: {card})")
 
@@ -1276,9 +1302,10 @@ def server_config():
                         heartbeat_max_ttl=7200.0)
 
 
-def register_cluster(srv, label: str) -> dict:
-    """Register the server phases' 10,000 nodes and pre-load their usage
-    (seeded); returns node id -> (datacenter, class)."""
+def register_cluster(srv, label: str, preload: bool = True) -> dict:
+    """Register the server phases' 10,000 nodes and, with ``preload``,
+    pre-load their usage (seeded, written into the matrix, so not
+    journaled); returns node id -> (datacenter, class)."""
     rng = np.random.default_rng(7)
     t0 = time.perf_counter()
     specs = {}
@@ -1286,6 +1313,10 @@ def register_cluster(srv, label: str) -> dict:
         node = server_node(i)
         specs[node.id] = (node.datacenter, node.node_class)
         srv.register_node(node)
+    if not preload:
+        log(f"{label}: {N_NODES} nodes registered in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return specs
     with srv.matrix._host_lock:
         host = srv.matrix.snapshot_host()
         usage = np.round(rng.uniform(0.1, 0.6, (N_NODES, 3))
@@ -2123,9 +2154,13 @@ def trace_burst(srv, jobs, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from nomad_tpu_torch.ops import kernels as k
+
+    launched = k.fused_place.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         evals, wall = burst(srv, jobs)
         torch.cuda.synchronize()
+    launched = k.fused_place.launches - launched
     # Every job of the traced burst placed in full: the system phase counts
     # on each service job holding its count.
     short = []
@@ -2158,6 +2193,16 @@ def trace_burst(srv, jobs, card: str) -> None:
         f"(card: {card})")
     for us, count, key in sorted(rows, reverse=True)[:6]:
         log(f"  device {us / 1e3:9.3f} ms  x{count:<5d} {key[:70]}")
+    kept_records(rows, "fused_place_kernel", launched)
+
+
+def kept_records(rows, name: str, launched: int) -> None:
+    """Log when the profiler kept fewer records of kernel ``name`` than
+    its wrapper launched: the busy share then misses their time."""
+    kept = sum(count for _, count, key in rows if name in key)
+    if kept < launched:
+        log(f"  the profiler kept {kept} of {launched} {name} launches: "
+            "the busy share misses the rest")
 
 
 def phase_timing(batch: Batch, card: str, results: dict) -> None:
@@ -2202,7 +2247,7 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
                 int(batch.arrays.used.shape[0]), LANES,
                 t["delta_rows"].shape[1], SCAN, batch.features)
             shape = f"; launch {r['launch']}"
-        log(f"timing {name}: {ms:.4f} ms by CUDA events, {dev_us:.3f} us a "
+        log(f"timing {name}: {ms:.4f} ms by CUDA events, {fmt_us(dev_us)} a "
             f"launch on the device (profiler); plain version {plain_ms:.3f} "
             f"ms, bound {b_ms:.5f} ms by {by}; {work[0]} bytes, "
             f"{work[1]:.4g} ops{shape} (card: {card})")
@@ -2219,9 +2264,10 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
     v_us = results["allocs_fit_verify"]["device_us"]
     dispatch_ms = time_cuda(
         lambda: k.fused_place_batch(*args, SCAN, batch.features), runs=20)
-    results["fused_dispatch"] = {"device_us": fp_us + v_us, "ms": dispatch_ms}
-    log(f"timing fused dispatch: fused_place {fp_us:.3f} + allocs_fit_verify "
-        f"{v_us:.3f} = {fp_us + v_us:.3f} us on the device; "
+    both_us = None if fp_us is None or v_us is None else fp_us + v_us
+    results["fused_dispatch"] = {"device_us": both_us, "ms": dispatch_ms}
+    log(f"timing fused dispatch: fused_place {fmt_us(fp_us)} + "
+        f"allocs_fit_verify {fmt_us(v_us)} = {fmt_us(both_us)} on the device; "
         f"fused_place_batch {dispatch_ms:.4f} ms by CUDA events (card: {card})")
 
     # allocs_fit_verify on the hot-row stream and in its device-scratch tier.
@@ -2240,7 +2286,7 @@ def phase_timing(batch: Batch, card: str, results: dict) -> None:
             "launch": k.allocs_fit_verify_shape(n, b, p, d),
         }
         log(f"timing allocs_fit_verify [{case}]: {tiers[case]['ms']:.4f} ms "
-            f"by CUDA events, {tiers[case]['device_us']:.3f} us a launch on "
+            f"by CUDA events, {fmt_us(tiers[case]['device_us'])} a launch on "
             f"the device (profiler); B={b}, P={p}, D={d}; plan "
             f"{tiers[case]['launch']} (card: {card})")
     r["cases"] = tiers
@@ -2262,23 +2308,35 @@ def host_us_per_call(fn, runs: int = 2000) -> float:
     return us
 
 
-def device_us_per_launch(fn, name: str, runs: int = 20) -> float:
-    """Device time of kernel ``name`` per launch over ``runs`` calls of
-    ``fn``, from the CUDA profiler; 0.0 when it recorded none."""
+def device_us_per_launch(fn, name: str, runs: int = 20,
+                         passes: int = 3) -> Optional[float]:
+    """Median device time of kernel ``name`` per launch over ``runs``
+    calls of ``fn`` (one launch each), from the CUDA profiler's kernel
+    records.  Late in this long process the profiler keeps only some of
+    a trace's records (14 of 20, or none, on the H100); a pass that kept
+    fewer than half is profiled again, up to ``passes`` in all.  None
+    (not measured) when no pass did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if name in e.key and e.count:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            return us / e.count
-    return 0.0
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        durations = [e.time_range.elapsed_us() for e in prof.events()
+                     if name in e.name]
+        if len(durations) < runs:
+            log(f"profiler: {len(durations)} of {runs} {name} launches "
+                "recorded")
+        if 2 * len(durations) >= runs:
+            return statistics.median(durations)
+    return None
+
+
+def fmt_us(x: Optional[float]) -> str:
+    """A profiler time for the log, or "not measured"."""
+    return "not measured" if x is None else f"{x:.3f} us"
 
 
 def phase_system_timing(m, card: str, results: dict) -> None:
@@ -2331,7 +2389,7 @@ def phase_system_timing(m, card: str, results: dict) -> None:
         device_us=dev_us, host_split_us=split)
     results["system_server"]["dispatch_ms"] = dispatch_ms
     log(f"timing system_feasible: {ms:.4f} ms by CUDA events, "
-        f"{dev_us:.3f} us a launch on the device (profiler); plain version "
+        f"{fmt_us(dev_us)} a launch on the device (profiler); plain version "
         f"{plain_ms:.3f} ms; bound {b_ms:.6f} ms by {by}; {work[0]} bytes, "
         f"{work[1]:.4g} ops; one node-update dispatch ({len(own)} deltas, "
         f"kernel, copy back) {dispatch_ms:.3f} ms on the host clock "
@@ -2658,7 +2716,7 @@ def phase_batched_scoring(m, card: str, results: dict) -> None:
     r["launch"] = {b: k.score_batch_shape(n, b, feats) for b in timing}
     for label, (t_ms, t_us) in timing.items():
         log(f"timing score_batch B={label}: {t_ms:.4f} ms by CUDA events, "
-            f"{t_us:.3f} us a launch on the device (profiler); launch "
+            f"{fmt_us(t_us)} a launch on the device (profiler); launch "
             f"{r['launch'][label]} (card: {card})")
     log(f"timing score_batch B={SCORE_BATCH}: plain version {plain_ms:.3f} ms "
         f"(chunks of {PLAIN_CHUNK} lanes); bound {b_ms:.5f} ms by {by}; "
@@ -2700,6 +2758,7 @@ def trace_sync(args, feats, card: str, n: int = 20) -> None:
         f"{100.0 - 100.0 * busy_s / wall:.2f}% (card: {card})")
     for us, count, key in sorted(rows, reverse=True)[:6]:
         log(f"  device {us / 1e3:9.3f} ms  x{count:<5d} {key[:70]}")
+    kept_records(rows, "score_batch_kernel", n)
 
 
 # ---------------------------------------------------------------------------
@@ -2843,9 +2902,387 @@ def phase_plan_verify(card: str, m, recorder, results: dict) -> None:
         "library_ms": None, "device_us": dev_us, "matches_plain": True,
     }
     log(f"timing verify_plan_fit K={len(rows)}: {ms:.4f} ms by CUDA events, "
-        f"{dev_us:.3f} us a launch on the device (profiler); plain version "
+        f"{fmt_us(dev_us)} a launch on the device (profiler); plain version "
         f"{plain_ms:.3f} ms; bound {b_ms:.6f} ms by {by}; {work[0]} bytes, "
         f"{work[1]} ops (card: {card})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: restart (the write-ahead log, snapshots, restore, snapshot install)
+# ---------------------------------------------------------------------------
+
+RESTART_BIG_CPU = 64_000  # the node that unblocks the restored blocked eval
+
+
+def crash_stop(srv) -> None:
+    """Stop a server's threads without the clean-shutdown snapshot: what
+    is on disk is what a crash leaves (each append is flushed before its
+    mutation applies)."""
+    wal = srv.store.wal
+    srv.store.wal = None
+    srv.shutdown()
+    wal.close()
+
+
+def restart_config(data_dir: str):
+    cfg = server_config()
+    cfg.data_dir = data_dir
+    return cfg
+
+
+def restart_job(label: str, i: int):
+    job = service_job(i)
+    job.id = job.name = f"restart-{label}-{i:02d}"
+    return job
+
+
+def huge_job():
+    """A job no server node has room for: its eval blocks, and places on
+    the big node that registers after the restart."""
+    job = restart_job("huge", 0)
+    job.task_groups[0].count = 1
+    job.task_groups[0].tasks[0].resources.cpu = RESTART_BIG_CPU // 2
+    return job
+
+
+def big_node():
+    node = server_node(0)
+    node.id = node.name = "restart-big"
+    node.resources.cpu = RESTART_BIG_CPU
+    node.resources.memory_mb = 1 << 20
+    return node
+
+
+def host_equal(ma, mb, label: str) -> None:
+    """Every field of two matrices' host arrays equal row for row (NaN
+    columns included), and the same node on every row."""
+    ha, hb = ma.snapshot_host(), mb.snapshot_host()
+    for f in ha:
+        if not np.array_equal(ha[f], hb[f],
+                              equal_nan=ha[f].dtype.kind == "f"):
+            raise AssertionError(f"{label}: matrix field {f} differs")
+    if ma.row_of != mb.row_of:
+        raise AssertionError(f"{label}: matrix rows hold other nodes")
+
+
+def tensors_equal(a, b) -> bool:
+    """Bitwise equality (NaN columns compare equal to themselves)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def new_allocs(srv, before: set, prefix: str) -> list:
+    return [a for a in srv.store.allocs.values()
+            if a.id not in before and not a.terminal_status()
+            and a.job_id.startswith(prefix)]
+
+
+def check_new_burst(srv, before: set, prefix: str, label: str) -> int:
+    """Each job of a restart burst holds exactly SERVER_COUNT live allocs,
+    on nodes the store holds, and no node is over capacity."""
+    allocs = new_allocs(srv, before, prefix)
+    per_job = {}
+    for a in allocs:
+        if srv.store.node_by_id(a.node_id) is None:
+            raise AssertionError(f"{label}: alloc on unknown node {a.node_id}")
+        per_job[a.job_id] = per_job.get(a.job_id, 0) + 1
+    if (len(allocs) != SERVER_JOBS * SERVER_COUNT
+            or set(per_job.values()) != {SERVER_COUNT}):
+        raise AssertionError(f"{label}: {len(allocs)} allocs over "
+                             f"{len(per_job)} jobs, expected "
+                             f"{SERVER_JOBS} x {SERVER_COUNT}")
+    check_capacity(srv, label)
+    return len(allocs)
+
+
+def system_targets(srv, job, match) -> set:
+    """The nodes ``job`` must land on: those ``match(node)`` takes with
+    room for its ask."""
+    r = job.task_groups[0].combined_resources()
+    ask = np.array([r.cpu, r.memory_mb, r.disk_mb], np.float32)
+    with srv.matrix._host_lock:
+        host = srv.matrix.snapshot_host()
+        room = np.all(host["used"] + ask <= host["totals"], axis=1)
+    return {nid for nid, node in list(srv.store.nodes.items())
+            if match(node) and room[srv.matrix.row_of[nid]]}
+
+
+def run_system_job(srv, job, want: set, label: str) -> float:
+    t0 = time.perf_counter()
+    ev = srv.submit_job(job)
+    while not srv.store.eval_by_id(ev.id).terminal_status():
+        if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+            raise AssertionError(f"{label}: {job.id} eval not terminal")
+        time.sleep(0.005)
+    secs = time.perf_counter() - t0
+    if srv.store.eval_by_id(ev.id).status != "complete":
+        raise AssertionError(f"{label}: {job.id} eval "
+                             f"{srv.store.eval_by_id(ev.id).status}")
+    expect_system(srv, job, want, label)
+    return secs
+
+
+def path_launches(k) -> dict:
+    return {
+        "fused_place": k.fused_place.launches,
+        "allocs_fit_verify": k.allocs_fit_verify.launches,
+        "system_feasible": k.system_feasible.launches,
+        "place_batch": k.place_batch.launches,
+        "plain": (k.place_lanes.calls + k.verify_lanes.calls
+                  + k.system_feasible_plain.calls),
+    }
+
+
+def check_path_launches(launches: dict, label: str) -> None:
+    """The restored and the installed server place through the three
+    kernels of the fused and system paths, never a plain version."""
+    if (launches["fused_place"] <= 0 or launches["allocs_fit_verify"] <= 0
+            or launches["system_feasible"] <= 0):
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    if launches["plain"] or launches["place_batch"]:
+        raise AssertionError(f"{label}: a plain version or the staged "
+                             f"kernel ran: {launches}")
+
+
+def phase_restart(card: str, results: dict) -> None:
+    """A server that journals to a data directory takes the server phase's
+    work, is crash-stopped, and a second server restores it from the
+    write-ahead log; its tables, matrix host arrays and (after one full
+    upload) device tensors equal the first's, and it places a burst, a
+    system job and its restored blocked eval through the kernels.  Its
+    clean shutdown writes a snapshot a third server restores alone; that
+    image is then installed into a running server whose matrix is already
+    on the card, which places a system job and a burst on it."""
+    import collections
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.state.wal import WriteAheadLog
+
+    exporter, shipper = system_jobs()
+    tmp = tempfile.mkdtemp(prefix="nomad-restart-")
+    data = str(Path(tmp) / "data")
+    servers = []
+    out = results.setdefault("restart", {})
+    try:
+        # 0. The journaled run's baseline: the same cluster and burst on a
+        # server without a data directory.
+        base = Server(server_config(), device="cuda")
+        servers.append(base)
+        base.start()
+        t0 = time.perf_counter()
+        register_cluster(base, "restart (no WAL)", preload=False)
+        out["register_s"] = time.perf_counter() - t0
+        evals, elapsed = burst(base, [restart_job("a", i)
+                                      for i in range(SERVER_JOBS)])
+        check_new_burst(base, set(), "restart-a-", "restart burst (no WAL)")
+        out["burst_evals_per_s"] = SERVER_JOBS / elapsed
+        out["burst_retried"] = retried_evals(base, evals)
+        base.shutdown()
+
+        # 1. The first server journals the work: 10,000 nodes, a 64-job
+        # burst, node-exporter, and a job whose eval blocks.
+        srv = Server(restart_config(data), device="cuda")
+        servers.append(srv)
+        srv.start()
+        t0 = time.perf_counter()
+        register_cluster(srv, "restart", preload=False)
+        out["wal_register_s"] = time.perf_counter() - t0
+        evals, elapsed = burst(srv, [restart_job("a", i)
+                                     for i in range(SERVER_JOBS)])
+        check_new_burst(srv, set(), "restart-a-", "restart burst (WAL)")
+        out["wal_burst_evals_per_s"] = SERVER_JOBS / elapsed
+        out["wal_burst_retried"] = retried_evals(srv, evals)
+        run_system_job(srv, exporter, system_targets(
+            srv, exporter, lambda n: True), "restart")
+        srv.submit_job(huge_job())
+        wait_quiet(srv, "restart: first server")
+        if not any(e.status == "blocked" and e.job_id == "restart-huge-00"
+                   for e in srv.store.evals.values()):
+            raise AssertionError("restart: the huge job's eval did not block")
+        n_entries = srv.store.wal.seq
+        log(f"restart: WAL burst {SERVER_JOBS} jobs x {SERVER_COUNT} in "
+            f"{elapsed:.3f} s = {out['wal_burst_evals_per_s']:.1f} evals/s "
+            f"({out['wal_burst_retried']} retried), the same cluster's "
+            f"burst without the WAL {out['burst_evals_per_s']:.1f} evals/s "
+            f"({out['burst_retried']} retried); {N_NODES} registrations "
+            f"{out['wal_register_s']:.3f} s with it, "
+            f"{out['register_s']:.3f} s without; {n_entries} log entries, "
+            f"{os.path.getsize(Path(data) / 'wal.jsonl')} bytes "
+            f"(card: {card})")
+
+        # 2. Crash-stop; bring the first server's device copy up to date.
+        crash_stop(srv)
+        src_arrays = srv.matrix.sync()
+        image = srv.store.to_snapshot_wire()
+
+        # 3. The second server restores from the log alone.
+        t0 = time.perf_counter()
+        srv2 = Server(restart_config(data), device="cuda")
+        out["restore_wal_s"] = time.perf_counter() - t0
+        servers.append(srv2)
+        if srv2.store.to_snapshot_wire() != image:
+            raise AssertionError("restart: restored tables differ")
+        if srv2.store.latest_index != srv.store.latest_index:
+            raise AssertionError("restart: restored latest index differs")
+        host_equal(srv.matrix, srv2.matrix, "restart (WAL)")
+        if srv2.matrix.full_uploads:
+            raise AssertionError("restart: uploaded before the first sync")
+        t0 = time.perf_counter()
+        arrays2 = srv2.matrix.sync()
+        torch.cuda.synchronize()
+        out["full_upload_ms"] = (time.perf_counter() - t0) * 1e3
+        if srv2.matrix.full_uploads != 1 or srv2.matrix.scatter_syncs:
+            raise AssertionError("restart: the first sync was not one full "
+                                 "upload")
+        out["full_upload_bytes"] = srv2.matrix.upload_bytes_total
+        for f, a in arrays2._asdict().items():
+            if not tensors_equal(a, getattr(src_arrays, f)):
+                raise AssertionError(f"restart: device column {f} differs "
+                                     "from the first server's")
+        log(f"restart: {len(srv2.store.nodes)} nodes, "
+            f"{len(srv2.store.allocs)} allocs, {len(srv2.store.evals)} evals "
+            f"restored from {n_entries} log entries in "
+            f"{out['restore_wal_s']:.3f} s; first sync one full upload of "
+            f"{out['full_upload_bytes']} bytes in {out['full_upload_ms']:.3f} "
+            f"ms, every column equal to the first server's (card: {card})")
+
+        # 4. The restored server places, counts zeroed just before.
+        sub = srv2.store.events.subscribe()
+        srv2.start()
+        k.reset_counts()
+        before = set(srv2.store.allocs)
+        evals, elapsed = burst(srv2, [restart_job("b", i)
+                                      for i in range(SERVER_JOBS)])
+        check_new_burst(srv2, before, "restart-b-", "restored burst")
+        out["restored_burst_evals_per_s"] = SERVER_JOBS / elapsed
+        sys_s = run_system_job(
+            srv2, shipper, system_targets(
+                srv2, shipper,
+                lambda n: n.datacenter == "dc1" and n.node_class != "class-3"),
+            "restored")
+        srv2.register_node(big_node())
+        t0 = time.perf_counter()
+        while [a.node_id for a in live_allocs(srv2, "restart-huge-00")] != [
+                "restart-big"]:
+            if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+                raise AssertionError("restart: the restored blocked eval "
+                                     "did not place on the big node")
+            time.sleep(0.01)
+        wait_quiet(srv2, "restored server")
+        launches = path_launches(k)
+        check_path_launches(launches, "restored server")
+        out["restored_launches"] = launches
+        mx = srv2.matrix
+        out["scatters"] = {
+            "syncs": mx.scatter_syncs, "rows": mx.rows_scattered_total,
+            "bytes": mx.upload_bytes_total - out["full_upload_bytes"],
+        }
+        log(f"restart: restored server placed {SERVER_JOBS} jobs x "
+            f"{SERVER_COUNT} at {out['restored_burst_evals_per_s']:.1f} "
+            f"evals/s, log-shipper on its nodes in {sys_s:.3f} s, the "
+            f"restored blocked eval on the big node; launches {launches}; "
+            f"after the one full upload {mx.full_uploads - 1} more, "
+            f"{mx.scatter_syncs} dirty-row scatters of "
+            f"{mx.rows_scattered_total / max(1, mx.scatter_syncs):.1f} rows, "
+            f"{out['scatters']['bytes']} bytes in all (card: {card})")
+
+        # 5. Clean shutdown: a snapshot and an empty log; a third server
+        # restores from the snapshot alone.
+        srv2.shutdown()
+        image2 = srv2.store.to_snapshot_wire()
+        snap, entries = WriteAheadLog(data).load()
+        if snap is None or entries:
+            raise AssertionError(f"restart: shutdown left snapshot "
+                                 f"{snap is not None}, {len(entries)} log "
+                                 "entries")
+        events = []
+        while True:
+            batch = sub.next(timeout=0.2)
+            if not batch:
+                break
+            events.extend(batch)
+        out["events_per_topic"] = dict(collections.Counter(
+            e.topic for e in events))
+        out["health"] = srv2.observatory.health_report()["status"]
+        out["slo"] = {r["name"]: r["status"]
+                      for r in srv2.observatory.slo_report()["slos"]}
+        out["controller"] = srv2.overload_controller.report()["state"]
+        t0 = time.perf_counter()
+        srv3 = Server(restart_config(data), device="cuda")
+        out["restore_snapshot_s"] = time.perf_counter() - t0
+        servers.append(srv3)
+        if srv3.store.to_snapshot_wire() != image2:
+            raise AssertionError("restart: snapshot-restored tables differ")
+        if {k_: v for k_, v in snap.items() if k_ != "wal_seq"} != image2:
+            raise AssertionError("restart: the snapshot is not the image")
+        host_equal(srv2.matrix, srv3.matrix, "restart (snapshot)")
+        log(f"restart: snapshot of {os.path.getsize(Path(data) / 'snapshot.json')}"
+            f" bytes restored in {out['restore_snapshot_s']:.3f} s; events "
+            f"{out['events_per_topic']}; health {out['health']}, SLOs "
+            f"{out['slo']}, controller {out['controller']} (card: {card})")
+
+        # 6. Install the image into a running server whose matrix is on
+        # the card; it places a system job and a burst on the new state.
+        srv4 = Server(server_config(), device="cuda")
+        servers.append(srv4)
+        srv4.start()
+        for i in range(512):
+            node = server_node(i)
+            node.id = node.name = f"other-{i:03d}"
+            srv4.register_node(node)
+        burst(srv4, [restart_job("c", i) for i in range(8)])
+        old = srv4.matrix._device
+        uploads = srv4.matrix.full_uploads
+        t0 = time.perf_counter()
+        srv4.install_snapshot(snap, seq=snap["wal_seq"])
+        out["install_s"] = time.perf_counter() - t0
+        if srv4.store.to_snapshot_wire() != image2:
+            raise AssertionError("restart: installed tables differ")
+        host_equal(srv2.matrix, srv4.matrix, "restart (install)")
+        k.reset_counts()
+        before = set(srv4.store.allocs)
+        again = system_jobs()[0]
+        again.id = again.name = "restart-exporter"
+        again.task_groups[0].tasks[0].resources.networks[0].reserved_ports = [
+            SYSTEM_PORT + 1]
+        sys_s = run_system_job(srv4, again, system_targets(
+            srv4, again, lambda n: True), "installed")
+        evals, elapsed = burst(srv4, [restart_job("d", i)
+                                      for i in range(SERVER_JOBS)])
+        check_new_burst(srv4, before, "restart-d-", "installed burst")
+        launches = path_launches(k)
+        check_path_launches(launches, "installed server")
+        if srv4.matrix.full_uploads != uploads + 1:
+            raise AssertionError(
+                f"restart: {srv4.matrix.full_uploads - uploads} full uploads "
+                "after the install, expected one")
+        cols = srv4.matrix._device
+        if any(a is b for a, b in zip(cols, old)):
+            raise AssertionError("restart: the install kept a device column")
+        if not all(r() is t for r, t in zip(k._checked_matrix[0], cols)):
+            raise AssertionError("restart: the kernels' memoised columns are "
+                                 "not the installed matrix's")
+        out["installed_launches"] = launches
+        out["installed_burst_evals_per_s"] = SERVER_JOBS / elapsed
+        log(f"restart: installed {len(srv4.store.nodes)} nodes into a running "
+            f"server in {out['install_s']:.3f} s; one full upload after it; "
+            f"restart-exporter on every node in {sys_s:.3f} s, a burst at "
+            f"{out['installed_burst_evals_per_s']:.1f} evals/s; launches "
+            f"{launches} (card: {card})")
+    finally:
+        for s_ in servers:
+            s_.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2901,11 +3338,21 @@ def main() -> int:
     timed("batched scoring", phase_batched_scoring,
           build_cluster(N_NODES, CAPACITY, "cuda"), card, results)
     timed("plan verify", phase_plan_verify, card, m, recorder, results)
+    timed("restart", phase_restart, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "
         f"{staged['evals_per_s']:.1f} evals/s, {staged['refused']} "
         f"refusals, {staged['retried']} retried (card: {card})")
+    restart = results["restart"]
+    log(f"restart: WAL burst {restart['wal_burst_evals_per_s']:.1f} evals/s "
+        f"(the same cluster's burst without it "
+        f"{restart['burst_evals_per_s']:.1f}); "
+        f"restore {restart['restore_wal_s']:.3f} s from the log, "
+        f"{restart['restore_snapshot_s']:.3f} s from the snapshot; "
+        f"install {restart['install_s']:.3f} s; first sync "
+        f"{restart['full_upload_bytes']} bytes in "
+        f"{restart['full_upload_ms']:.3f} ms (card: {card})")
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",

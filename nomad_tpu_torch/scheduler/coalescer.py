@@ -218,6 +218,10 @@ class DeviceCoalescer:
         if self._thread:
             self._thread.join(timeout=10)
 
+    def inflight_depth(self) -> int:
+        """Dispatches launched but not yet resolved (pipeline occupancy)."""
+        return self.inflight
+
     # ------------------------------------------------------------------
 
     def place(

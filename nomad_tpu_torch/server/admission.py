@@ -9,15 +9,25 @@ the registration with a 400 before anything journals.
 The hook lists are module-level and extensible — the seam the reference
 uses for Connect injection/expose checks is the same seam here.
 
-The load gate (token buckets, overload factor) is not part of this
-package yet.
+Beyond structure, admission is also the cluster's *load* gate:
+:class:`AdmissionGate` keeps a token bucket per namespace and an overload
+factor driven by the :class:`~..obs.controller.OverloadController`.  A
+submission that outruns its namespace's refill rate raises
+:class:`RateLimitError` with a ``retry_after`` hint computed from the
+bucket's actual deficit (an HTTP layer maps it to ``429 Too Many
+Requests`` + ``Retry-After``).  A copy of the reference package's gate
+without its chaos seam (the injected spurious rejection).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, List
+import threading
+import time
+from typing import Callable, Dict, List, Optional
 
+from .. import trace
+from ..retry import env_float
 from ..structs.types import Job, JobType, Op
 
 # Job/group/task names the CLI and fs paths can safely carry.
@@ -130,3 +140,142 @@ def admit(job: Job) -> None:
         errs.extend(v(job))
     if errs:
         raise ValueError("; ".join(errs))
+
+
+# ----------------------------------------------------------------------
+# Load-aware admission: token buckets + overload gate
+# ----------------------------------------------------------------------
+
+class RateLimitError(Exception):
+    """Submission rejected for load, not structure.  Maps to HTTP 429;
+    ``retry_after`` (seconds) becomes the ``Retry-After`` header."""
+
+    def __init__(self, message: str, retry_after: float):
+        super().__init__(message)
+        self.retry_after = max(0.1, float(retry_after))
+
+
+class TokenBucket:
+    """Classic token bucket: ``burst`` capacity refilled at ``rate``/s.
+
+    ``take`` returns 0.0 on admit, else the seconds until the deficit
+    refills — the Retry-After hint.  An effective-rate ``factor`` < 1
+    (the overload gate) slows refill without discarding accrued tokens,
+    so engaging the gate never retroactively punishes a quiet tenant.
+    """
+
+    __slots__ = ("rate", "burst", "_tokens", "_stamp")
+
+    def __init__(self, rate: float, burst: float):
+        self.rate = max(rate, 1e-9)
+        self.burst = max(burst, 1.0)
+        self._tokens = self.burst
+        self._stamp: Optional[float] = None
+
+    def take(
+        self, n: float = 1.0, now: Optional[float] = None,
+        factor: float = 1.0,
+    ) -> float:
+        now = now if now is not None else time.monotonic()
+        rate = self.rate * max(factor, 1e-9)
+        if self._stamp is not None:
+            self._tokens = min(
+                self.burst, self._tokens + (now - self._stamp) * rate
+            )
+        self._stamp = now
+        if self._tokens >= n:
+            self._tokens -= n
+            return 0.0
+        return (n - self._tokens) / rate
+
+
+class AdmissionGate:
+    """Per-namespace token buckets + the controller-driven overload gate.
+
+    ``factor`` is the effective-rate scale the OverloadController sets
+    (1.0 steady, <1.0 gated); ``check`` is called by
+    ``Server.submit_job`` on every external register/dispatch.  Stats
+    feed the controller's report.
+    """
+
+    def __init__(
+        self,
+        rate: Optional[float] = None,
+        burst: Optional[float] = None,
+        metrics=None,
+    ):
+        self.rate = rate if rate is not None else env_float(
+            "NOMAD_TPU_OVERLOAD_RATE", 500.0
+        )
+        self.burst = burst if burst is not None else env_float(
+            "NOMAD_TPU_OVERLOAD_BURST", 2.0 * self.rate
+        )
+        self.metrics = metrics
+        self._lock = threading.Lock()
+        self._buckets: Dict[str, TokenBucket] = {}
+        self._factor = 1.0
+        self._retry_after = 2.0
+        self._admitted = 0
+        self._rejected = 0
+        self._gate_changes = 0
+
+    @property
+    def factor(self) -> float:
+        return self._factor
+
+    def set_gate_level(self, factor: float, retry_after: float = 2.0) -> None:
+        """Controller actuation point: scale every namespace's effective
+        refill rate.  Callers are OverloadController actuator methods,
+        each of which emits a trace event and a counter."""
+        with self._lock:
+            if factor != self._factor:
+                self._gate_changes += 1
+            self._factor = max(min(float(factor), 1.0), 0.0)
+            self._retry_after = retry_after
+
+    def check(
+        self, namespace: str, priority: int = 0,
+        now: Optional[float] = None,
+    ) -> None:
+        """Admit or raise :class:`RateLimitError`.  ``rate`` <= 0
+        disables volumetric limiting entirely (the gate factor still
+        reports, but nothing is rejected)."""
+        if self.rate <= 0:
+            return
+        with self._lock:
+            bucket = self._buckets.get(namespace)
+            if bucket is None:
+                bucket = self._buckets[namespace] = TokenBucket(
+                    self.rate, self.burst
+                )
+            wait = bucket.take(1.0, now=now, factor=self._factor)
+            if wait <= 0.0:
+                self._admitted += 1
+                return
+            self._rejected += 1
+            retry = max(wait, self._retry_after if self._factor < 1.0 else 0.1)
+        trace.event(
+            "seam.admission.gate", namespace=namespace, spurious=False,
+            wait=round(wait, 4),
+        )
+        if self.metrics is not None:
+            self.metrics.incr(
+                "nomad.overload.admission_rejected", namespace=namespace
+            )
+        raise RateLimitError(
+            f"namespace {namespace!r} over admission rate "
+            f"(effective {self.rate * self._factor:g}/s); retry later",
+            retry_after=retry,
+        )
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "factor": self._factor,
+                "rate": self.rate,
+                "burst": self.burst,
+                "admitted": self._admitted,
+                "rejected": self._rejected,
+                "gate_changes": self._gate_changes,
+                "namespaces": len(self._buckets),
+            }

@@ -13,8 +13,8 @@ month day-of-week, supporting ``*``, ``*/n``, ``a-b``, lists, and the
 ``@hourly``/``@daily``/``@weekly`` shorthands) — the reference pulls in
 ``gorhill/cronexpr``; this build needs no dependency for the same core.
 
-Children register through ``Server.submit_job``; the reference's load
-gate, which exempts them, is not part of this package yet.
+Children register through ``Server.submit_job(internal=True)``: the load
+gate exempts them.
 """
 
 from __future__ import annotations
@@ -230,7 +230,9 @@ class PeriodicDispatcher:
         child.parent_id = job.id
         child.periodic = None
         self.server.record_periodic_launch(job.namespace, job.id, launch_time)
-        self.server.submit_job(child)
+        # internal: periodic children are server-originated — the load
+        # gate must not shed scheduled work.
+        self.server.submit_job(child, internal=True)
 
     def _child_running(self, job: Job) -> bool:
         store = self.server.store

@@ -11,8 +11,15 @@ evals, volume claims, periodic core GC), with the job, deployment, node
 and GC RPCs that feed them.  Every mutation funnels through the
 ``apply_*`` methods with a monotonically assigned index.
 
-The load gate, overload control, SLOs, replication and the WAL, ACLs,
-telemetry gauges and the HTTP API are not part of this package yet.
+With ``ServerConfig.data_dir`` set, every store mutation is write-ahead
+journaled there (``state/wal.py``) and a new server restores the snapshot
+and the log tail before it starts; the matrix is rebuilt through the
+store's mutators, and its first sync uploads it in full.  The leader's
+control loop — the SLO observatory, the admission gate and the overload
+controller (``obs/``) — starts and stops with leadership.
+
+Replication and membership, ACLs and the HTTP API are not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from ..structs.types import (
     SchedulerConfiguration,
     generate_uuid,
 )
-from .admission import admit
+from .admission import AdmissionGate, admit
 from .blocked_evals import BlockedEvals
 from .deploymentwatcher import DeploymentWatcher
 from .drainer import NodeDrainer
@@ -70,6 +77,12 @@ class ServerConfig:
     # Seed of the heartbeat TTL jitter (server/heartbeat.py).
     heartbeat_seed: int = 0
     node_capacity: int = 1024
+    # Durability (fsm.go Persist/Restore + raft-boltdb log): when set, every
+    # state mutation is write-ahead journaled under data_dir and the server
+    # restores snapshot+log on boot. None = in-memory only.
+    data_dir: Optional[str] = None
+    wal_fsync: bool = False
+    snapshot_every: int = 4096
     # Max selects batched into one device dispatch (scheduler/coalescer.py).
     coalescer_lanes: int = 64
     # Overlapping dispatches the coalescer keeps in flight.  None = env
@@ -87,6 +100,22 @@ class ServerConfig:
     scheduler_config: SchedulerConfiguration = field(
         default_factory=SchedulerConfiguration
     )
+    # SLO observatory (obs/): the leader's burn-rate loop.  slo_specs None
+    # = the north-star defaults (obs.default_slos); [] disables SLO
+    # evaluation while keeping the health report live.
+    slo_enabled: bool = True
+    slo_interval: float = 1.0
+    slo_specs: Optional[List] = None
+    # Overload control loop (obs/controller.py): the observatory tick
+    # drives admission gating + broker shedding off the composite
+    # pressure score.  overload_config None = NOMAD_TPU_OVERLOAD_* env
+    # defaults; admission_rate/burst None = NOMAD_TPU_OVERLOAD_RATE /
+    # _BURST (500/s, 1000) per-namespace token buckets (rate <= 0
+    # disables volumetric limiting).
+    overload_enabled: bool = True
+    overload_config: Optional[object] = None
+    admission_rate: Optional[float] = None
+    admission_burst: Optional[float] = None
 
 
 class Server:
@@ -106,6 +135,18 @@ class Server:
         )
         self.store = StateStore(matrix=self.matrix)
         self.store.scheduler_config = self.config.scheduler_config
+        if self.config.data_dir:
+            from ..state.wal import WriteAheadLog
+
+            wal = WriteAheadLog(self.config.data_dir, fsync=self.config.wal_fsync)
+            snap, entries = wal.load()
+            if snap or entries:
+                log.info(
+                    "restoring state: snapshot=%s wal_entries=%d",
+                    bool(snap), len(entries),
+                )
+            self.store.restore(snap, entries)
+            self.store.attach_wal(wal, snapshot_every=self.config.snapshot_every)
         self.eval_broker = EvalBroker(
             nack_timeout=self.config.eval_nack_timeout,
             delivery_limit=self.config.eval_delivery_limit,
@@ -137,6 +178,28 @@ class Server:
             metrics=self.metrics, device=self.device,
         )
         self.matrix.coalescer = self.coalescer
+        self._register_telemetry_gauges()
+
+        # SLO observatory: constructed always (its reports answer on a
+        # server that is not the leader too), ticking only on leaders.
+        from ..obs import OverloadController, SLOObservatory
+
+        self.observatory = SLOObservatory(
+            self,
+            specs=self.config.slo_specs,
+            interval=self.config.slo_interval,
+        )
+        # Overload control loop: gate + controller are constructed always
+        # (the report answers even when the loop is off); the observatory
+        # tick only steps the controller on leaders with overload_enabled.
+        self.admission_gate = AdmissionGate(
+            rate=self.config.admission_rate,
+            burst=self.config.admission_burst,
+            metrics=self.metrics,
+        )
+        self.overload_controller = OverloadController(
+            self, config=self.config.overload_config
+        )
 
         self._index_lock = threading.Lock()
         self._index = 0
@@ -145,6 +208,64 @@ class Server:
         self._unblock_stop = threading.Event()
         self._unblocker: Optional[threading.Thread] = None
         self._reaper: Optional[threading.Thread] = None
+
+    def _register_telemetry_gauges(self) -> None:
+        """The matrix, coalescer and encoder counters as pull gauges of the
+        registry, so one snapshot carries the device cost picture.  The
+        reference's gauges on the device breaker (wedged dispatches), on
+        sharding (shard evacuations, shard rows, top-k host bytes) and on
+        counters this package's coalescer does not keep (verify
+        conflicts, feature recompiles, operand bytes) wait for those
+        subjects."""
+        m = self.metrics
+        c = self.coalescer
+        mx = self.matrix
+        enc = mx.shared_encoder()
+        m.gauge_fn("nomad.coalescer.pipeline_depth", lambda: c.pipeline_depth)
+        m.gauge_fn("nomad.coalescer.inflight_depth", c.inflight_depth)
+        m.gauge_fn("nomad.coalescer.dispatches", lambda: c.dispatches)
+        m.gauge_fn(
+            "nomad.coalescer.coalesced_requests", lambda: c.coalesced_requests
+        )
+        m.gauge_fn(
+            "nomad.coalescer.lane_fill_ratio",
+            lambda: round(
+                c.coalesced_requests / (c.dispatches * c.max_lanes or 1), 4
+            ),
+        )
+        m.gauge_fn("nomad.coalescer.stale_dispatches", lambda: c.stale_dispatches)
+        m.gauge_fn("nomad.matrix.full_uploads", lambda: mx.full_uploads)
+        m.gauge_fn("nomad.matrix.scatter_syncs", lambda: mx.scatter_syncs)
+        m.gauge_fn(
+            "nomad.matrix.rows_scattered_total", lambda: mx.rows_scattered_total
+        )
+        m.gauge_fn(
+            "nomad.matrix.rows_per_scatter",
+            lambda: round(mx.rows_scattered_total / (mx.scatter_syncs or 1), 2),
+        )
+        m.gauge_fn(
+            "nomad.matrix.upload_bytes_total", lambda: mx.upload_bytes_total
+        )
+        # Per-kernel attribution: launch counts by path and the request
+        # compile cache's hits and misses.  One fused launch serves every
+        # coalesced lane (launches/eval = fused_dispatches / fused_lanes).
+        m.gauge_fn("nomad.kernel.launches", lambda: c.dispatches, path="batched")
+        m.gauge_fn("nomad.kernel.launches", lambda: c.solo_ops, path="solo")
+        m.gauge_fn(
+            "nomad.kernel.launches", lambda: c.fused_dispatches, path="fused"
+        )
+        m.gauge_fn("nomad.kernel.fused_lanes", lambda: c.fused_lanes)
+        m.gauge_fn(
+            "nomad.kernel.launches_per_eval",
+            lambda: round(c.fused_dispatches / (c.fused_lanes or 1), 4),
+            path="fused",
+        )
+        m.gauge_fn(
+            "nomad.kernel.compile_cache", lambda: enc.cache_hits, result="hit"
+        )
+        m.gauge_fn(
+            "nomad.kernel.compile_cache", lambda: enc.cache_misses, result="miss"
+        )
 
     # ------------------------------------------------------------------
 
@@ -158,9 +279,13 @@ class Server:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """Enable the scheduling services (establishLeadership,
-        leader.go:222, the subset this package has; a single server is
-        always the leader)."""
+        """A single server is always the leader (the reference's
+        multi-server start follows an election first)."""
+        self.establish_leadership()
+
+    def establish_leadership(self) -> None:
+        """Enable leader-only services (establishLeadership,
+        leader.go:222)."""
         if self._leader:
             return
         self._leader = True
@@ -169,14 +294,10 @@ class Server:
         self.plan_queue.set_enabled(True)
         self.heartbeater.set_enabled(True)
         self.coalescer.start()
-        self.plan_applier.start()
+        self.plan_applier.start()  # idempotent: leadership can cycle
         for w in self.workers:
             w.start()
-        for ev in list(self.store.evals.values()):
-            if ev.should_enqueue():
-                self.eval_broker.enqueue(ev)
-            elif ev.should_block():
-                self.blocked_evals.block(ev)
+        self._restore_evals()
         # Arm TTL timers for nodes already in state — a node that died while
         # no leader was watching must still expire (initializeHeartbeatTimers,
         # nomad/heartbeat.go:21).
@@ -186,6 +307,8 @@ class Server:
         self.deployment_watcher.start()
         self.drainer.start()
         self.periodic.start()  # restores periodic jobs from state
+        if self.config.slo_enabled:
+            self.observatory.start()
         self._unblock_stop.clear()
         self._unblocker = threading.Thread(
             target=self._periodic_unblock_failed, name="unblock-failed",
@@ -205,15 +328,55 @@ class Server:
         ):
             self.blocked_evals.unblock_failed()
 
-    def shutdown(self) -> None:
-        self._leader = False
+    def _stop_leader_threads(self) -> None:
         self._unblock_stop.set()
         for thread in (self._unblocker, self._reaper):
-            if thread is not None:
+            if thread is not None and thread is not threading.current_thread():
                 thread.join()
+
+    def revoke_leadership(self) -> None:
+        """Disable leader-only services (revokeLeadership, leader.go)."""
+        if not self._leader:
+            return
+        self._leader = False
+        self.eval_broker.set_enabled(False)
+        self.blocked_evals.set_enabled(False)
+        self.plan_queue.set_enabled(False)
+        self.heartbeater.set_enabled(False)
+        self._stop_leader_threads()
         self.deployment_watcher.stop()
         self.drainer.stop()
         self.periodic.stop()
+        self.observatory.stop()
+        # Release the actuators: a demoted leader must not leave the
+        # cluster gated/shedding on stale pressure it can no longer see.
+        self.overload_controller.reset()
+
+    def install_snapshot(self, snapshot_wire: dict, seq: int) -> None:
+        """Replace all state with another server's image
+        (``StateStore.install_snapshot``).  The reference installs only on
+        followers, which schedule nothing; so a leader steps down first
+        and its workers finish their evals, and no select holds rows of
+        the matrix that the install clears.  It takes leadership back
+        after, which re-enqueues the image's evals."""
+        leader = self._leader
+        self.revoke_leadership()
+        for w in self.workers:  # signal all first: each polls for 0.2 s
+            w.stop(timeout=0)
+        for w in self.workers:
+            w.stop(timeout=None)
+        self.store.install_snapshot(snapshot_wire, seq)
+        if leader:
+            self.establish_leadership()
+
+    def shutdown(self) -> None:
+        self._leader = False
+        self._stop_leader_threads()
+        self.deployment_watcher.stop()
+        self.drainer.stop()
+        self.periodic.stop()
+        self.observatory.stop()
+        self.overload_controller.reset()
         for w in self.workers:
             w.stop()
         self.plan_applier.stop()
@@ -221,15 +384,40 @@ class Server:
         self.eval_broker.shutdown()
         self.plan_queue.shutdown()
         self.heartbeater.set_enabled(False)
+        if self.store.wal is not None:
+            # Clean-shutdown snapshot: compacts the log and speeds the next
+            # boot (crash-stop restores identically from WAL replay).
+            try:
+                self.store.write_snapshot()
+                self.store.wal.close()
+            except Exception:  # noqa: BLE001
+                log.exception("shutdown snapshot failed")
+
+    def _restore_evals(self) -> None:
+        """Re-enqueue non-terminal evals from state on leadership gain
+        (restoreEvals, leader.go:493)."""
+        for ev in list(self.store.evals.values()):
+            if ev.should_enqueue():
+                self.eval_broker.enqueue(ev)
+            elif ev.should_block():
+                self.blocked_evals.block(ev)
 
     # ------------------------------------------------------------------
     # Job RPCs (nomad/job_endpoint.go:80 Register, :797 Deregister)
     # ------------------------------------------------------------------
 
-    def submit_job(self, job: Job) -> Optional[Evaluation]:
+    def submit_job(
+        self, job: Job, internal: bool = False
+    ) -> Optional[Evaluation]:
         # Admission pipeline (job_endpoint_hooks.go): mutate
-        # (canonicalize), then validate — rejects before anything lands.
+        # (canonicalize), then validate — rejects before anything journals.
         admit(job)
+        # Load gate (after canonicalize so namespace is filled): external
+        # registers/dispatches pay the token bucket; internal resubmits
+        # (periodic children, reverts, scales) bypass it — shedding them
+        # would silently drop work the server itself originated.
+        if not internal:
+            self.admission_gate.check(job.namespace, job.priority)
         index = self.next_index()
         job.submit_time = time.time()
         job.status = JobStatus.PENDING.value
@@ -449,6 +637,8 @@ class Server:
 
     def _on_heartbeat_expired(self, node_id: str) -> None:
         log.info("node %s missed heartbeat, marking down", node_id)
+        # Health signal: the heartbeat_liveness SLO and the overload
+        # score both rate this counter (obs/evaluator.py).
         self.metrics.incr("nomad.heartbeat.missed")
         self.update_node_status(node_id, NodeStatus.DOWN.value)
 
@@ -645,7 +835,7 @@ class Server:
             return None
         reverted = target.copy()
         reverted.stop = False
-        return self.submit_job(reverted)
+        return self.submit_job(reverted, internal=True)
 
     def pause_deployment(self, deployment_id: str, pause: bool) -> None:
         """Pause/resume a rolling update (Deployment.Pause,
@@ -661,10 +851,9 @@ class Server:
 
     # ------------------------------------------------------------------
     # Parameterized dispatch + scaling (nomad/job_endpoint.go:1849
-    # Dispatch, :980 Scale).  Both register through submit_job; the
-    # reference's load gate (which exempts these server-side resubmits)
-    # comes with the admission gate, so submit_job has no ``internal=``
-    # switch yet.
+    # Dispatch, :980 Scale).  Both register through submit_job: a
+    # dispatch pays the load gate like any external register, a scale is
+    # internal.
     # ------------------------------------------------------------------
 
     # structs.DispatchPayloadSizeLimit (16 KiB), pre-base64.
@@ -763,7 +952,7 @@ class Server:
                     )
             updated = job.copy()
             updated.lookup_task_group(group).count = count
-            ev = self.submit_job(updated)
+            ev = self.submit_job(updated, internal=True)
         self.store.record_scaling_event(
             self.next_index(), namespace, job_id, group,
             ScalingEvent(

@@ -61,10 +61,10 @@ class Worker:
             )
             self._renewer.start()
 
-    def stop(self) -> None:
+    def stop(self, timeout: Optional[float] = 5) -> None:
         self._stop.set()
         if self._thread:
-            self._thread.join(timeout=5)
+            self._thread.join(timeout=timeout)
 
     def _renew_loop(self) -> None:
         """Lease-renewal heartbeat: while a scheduler invocation is in

@@ -31,6 +31,7 @@ The store also forwards node/alloc deltas to the device-resident
 from __future__ import annotations
 
 import functools
+import inspect
 import threading
 import time as _time
 from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
@@ -57,15 +58,57 @@ from .matrix import NodeMatrix
 
 
 def journaled(fn):
-    """Serialize a top-level store mutation under the writer and read
-    locks.  (The reference package also journals it to a WAL and
-    replicates it here; this package keeps the store in memory only.)"""
+    """Journal a top-level store mutation to the attached WAL (if any).
+
+    The append happens *before* the mutation applies (write-ahead), inside
+    the store lock so the log order is the apply order.  Nested mutator
+    calls (``upsert_plan_results`` → ``upsert_allocs``…), replayed
+    mutations and entries applied from a leader's stream
+    (:meth:`StateStore.apply_remote`) are not re-journaled.
+
+    Mutators that stamp wall-clock times declare a keyword-only ``now``
+    parameter; the wrapper resolves it *before* appending so the timestamp
+    is part of the journaled args and WAL replay is deterministic (the
+    reference journals timestamps inside raft request bodies for the same
+    reason, e.g. structs.AllocUpdateRequest timestamps).
+
+    The reference package's wrapper also replicates the entry to a quorum
+    before the append; this package has no replicator yet.
+    """
+    op = fn.__name__
+    has_now = "now" in inspect.signature(fn).parameters
 
     @functools.wraps(fn)
     def wrapper(self, index, *args, **kwargs):
+        # Writers serialize on _write_lock (reentrant — mutators nest),
+        # then take _lock (the read lock) for the append and the apply.
         with self._write_lock:
             with self._lock:
-                return fn(self, index, *args, **kwargs)
+                if (
+                    self.wal is None
+                    or self._replaying
+                    or self._applying_remote
+                    or self._journal_depth > 0
+                ):
+                    return fn(self, index, *args, **kwargs)
+                if has_now and kwargs.get("now") is None:
+                    kwargs["now"] = _time.time()
+                from ..structs import serde
+
+                self.wal.append(index, op, {
+                    "args": [serde.to_wire(a) for a in args],
+                    "kwargs": {
+                        k: serde.to_wire(v) for k, v in kwargs.items()
+                    },
+                })
+                self._journal_depth += 1
+                try:
+                    out = fn(self, index, *args, **kwargs)
+                finally:
+                    self._journal_depth -= 1
+                if self.wal.appends_since_snapshot >= self.snapshot_every:
+                    self.write_snapshot()
+                return out
 
     return wrapper
 
@@ -108,6 +151,22 @@ class StateStore:
         # after any waiter's failed predicate check (no lost wakeups).
         self._watch_cond = threading.Condition(threading.Lock())
         self.matrix = matrix if matrix is not None else NodeMatrix()
+
+        # Durability seam (attach_wal): top-level mutations journal through
+        # the @journaled decorator; replay suppresses re-journaling.
+        self.wal = None
+        self._replaying = False
+        self._journal_depth = 0
+        self.snapshot_every = 4096
+        # Consensus seam (apply_remote): marks follower-side applies of
+        # entries a leader already committed.
+        self._applying_remote = False
+
+        # Change-event stream (nomad/stream/EventBroker): mutators publish
+        # as they commit; restore replay does not re-publish history.
+        from ..stream import EventBroker
+
+        self.events = EventBroker()
 
         self.latest_index = 0
         self._table_index: Dict[str, int] = {}
@@ -234,6 +293,19 @@ class StateStore:
             return None  # created after the snapshot
         return live  # history exhausted — bounded-staleness fallback
 
+    def _publish(
+        self, topic: str, type_: str, key: str, payload, index: int,
+        namespace: str = "default",
+    ) -> None:
+        if self._replaying:
+            return
+        from ..stream import Event
+
+        self.events.publish([
+            Event(topic=topic, type=type_, key=key, namespace=namespace,
+                  index=index, payload=payload)
+        ])
+
     # ------------------------------------------------------------------
     # Nodes
     # ------------------------------------------------------------------
@@ -261,6 +333,7 @@ class StateStore:
             self.nodes[node.id] = node
             self.matrix.upsert_node(node)
             self._bump("nodes", index)
+            self._publish("Node", "NodeRegistration", node.id, node, index)
 
     @journaled
     def delete_node(self, index: int, node_id: str) -> None:
@@ -270,6 +343,9 @@ class StateStore:
                 self._push_history("nodes", node_id, prev)
                 self.matrix.remove_node(node_id)
                 self._bump("nodes", index)
+                self._publish(
+                    "Node", "NodeDeregistered", node_id, None, index
+                )
 
     @journaled
     def update_node_status(
@@ -289,6 +365,7 @@ class StateStore:
             self.nodes[node_id] = node
             self.matrix.upsert_node(node)
             self._bump("nodes", index)
+            self._publish("Node", "NodeStatusUpdate", node_id, node, index)
 
     @journaled
     def update_node_eligibility(
@@ -307,6 +384,7 @@ class StateStore:
             self.nodes[node_id] = node
             self.matrix.upsert_node(node)
             self._bump("nodes", index)
+            self._publish("Node", "NodeEligibility", node_id, node, index)
 
     @journaled
     def update_node_drain(
@@ -332,6 +410,7 @@ class StateStore:
             self.nodes[node_id] = node
             self.matrix.upsert_node(node)
             self._bump("nodes", index)
+            self._publish("Node", "NodeDrain", node_id, node, index)
 
     def node_by_id(self, node_id: str) -> Optional[Node]:
         return self.nodes.get(node_id)
@@ -382,6 +461,9 @@ class StateStore:
                 if tg.scaling is not None:
                     self.scaling_policies[key + (tg.name,)] = tg.scaling
             self._bump("jobs", index)
+            self._publish(
+                "Job", "JobRegistered", job.id, job, index, job.namespace
+            )
 
     @staticmethod
     def _job_spec_changed(a: Job, b: Job) -> bool:
@@ -417,6 +499,9 @@ class StateStore:
                 for k in [p for p in self.scaling_events if p[:2] == key]:
                     del self.scaling_events[k]
                 self._bump("jobs", index)
+                self._publish(
+                    "Job", "JobDeregistered", job_id, None, index, namespace
+                )
 
     def job_by_id(self, namespace: str, job_id: str) -> Optional[Job]:
         return self.jobs.get((namespace, job_id))
@@ -455,6 +540,11 @@ class StateStore:
                     ev.id
                 )
             self._bump("evals", index)
+            for ev in upserted:
+                self._publish(
+                    "Evaluation", "EvaluationUpdated", ev.id, ev, index,
+                    ev.namespace,
+                )
 
     @journaled
     def delete_eval(self, index: int, eval_id: str) -> None:
@@ -550,6 +640,11 @@ class StateStore:
                         self._push_history("allocs", old2.id, old)
                         self.allocs[old2.id] = old2
             self._bump("allocs", index)
+            for alloc in upserted:
+                self._publish(
+                    "Allocation", "AllocationUpdated", alloc.id, alloc,
+                    index, alloc.namespace,
+                )
 
     @journaled
     def update_allocs_from_client(
@@ -653,6 +748,10 @@ class StateStore:
                 (deployment.namespace, deployment.job_id), set()
             ).add(deployment.id)
             self._bump("deployment", index)
+            self._publish(
+                "Deployment", "DeploymentUpserted", deployment.id,
+                deployment, index, deployment.namespace,
+            )
 
     @journaled
     def delete_deployment(self, index: int, deployment_id: str) -> None:
@@ -701,6 +800,10 @@ class StateStore:
             self._push_history("deployment", deployment_id, d)
             self.deployments[deployment_id] = d2
             self._bump("deployment", index)
+            self._publish(
+                "Deployment", "DeploymentStatusUpdate", deployment_id, d2,
+                index, d2.namespace,
+            )
 
     @journaled
     def update_deployment_promotion(
@@ -728,6 +831,10 @@ class StateStore:
             self._push_history("deployment", deployment_id, d)
             self.deployments[deployment_id] = d2
             self._bump("deployment", index)
+            self._publish(
+                "Deployment", "DeploymentPromotion", deployment_id, d2,
+                index, d2.namespace,
+            )
 
     def _deployment_alloc_delta(
         self, index: int, alloc: Allocation, prev: Optional[Allocation],
@@ -825,10 +932,11 @@ class StateStore:
     # CSIVolumeClaim — trimmed to the plugin-less host-volume analog)
     # ------------------------------------------------------------------
 
-    # Public entry points validate under the canonical locks and only then
-    # enter the unconditional @journaled twin (in the reference package
-    # the wrapper journals before the mutator runs, so a mutator that
-    # raises would poison the log).
+    # Validation MUST precede the @journaled inner mutators: the wrapper
+    # WAL-appends BEFORE calling fn, so a mutator that raises poisons the
+    # log (replay crash-loops).
+    # Public entry points therefore validate under the canonical locks and
+    # only then enter the unconditional journaled twin.
 
     def upsert_volume(self, index: int, volume: "Volume") -> None:
         with self._write_lock, self._lock:
@@ -864,6 +972,10 @@ class StateStore:
             self._push_history("volumes", key, prev)
             self.volumes[key] = volume
             self._bump("volumes", index)
+            self._publish(
+                "Volume", "VolumeRegistered", volume.id, volume, index,
+                volume.namespace,
+            )
 
     def delete_volume(self, index: int, namespace: str, volume_id: str) -> None:
         with self._write_lock, self._lock:
@@ -883,6 +995,10 @@ class StateStore:
                 return
             self._push_history("volumes", key, vol)
             self._bump("volumes", index)
+            self._publish(
+                "Volume", "VolumeDeregistered", volume_id, None, index,
+                namespace,
+            )
 
     def claim_volume(
         self, index: int, namespace: str, volume_id: str, alloc_id: str,
@@ -926,6 +1042,14 @@ class StateStore:
 
     def volume_by_id(self, namespace: str, volume_id: str) -> Optional["Volume"]:
         return self.volumes.get((namespace, volume_id))
+
+    @journaled
+    def set_raft_peers(self, index: int, addrs: List[str]) -> None:
+        """Replace the replicated membership list (raft configuration
+        change); the snapshot image carries it as ``raft_peers``."""
+        with self._lock:
+            self.raft_peers = list(addrs)
+            self._bump("raft_peers", index)
 
     @journaled
     def record_scaling_event(
@@ -1100,6 +1224,222 @@ class StateStore:
                     self._bump("volumes", index)
             if evals:
                 self.upsert_evals(index, evals)
+
+
+    # ------------------------------------------------------------------
+    # Durability: WAL attach, snapshot image, restore
+    # (reference: nomad/fsm.go:1367 Persist / :1381 Restore)
+    # ------------------------------------------------------------------
+
+    def attach_wal(self, wal, snapshot_every: int = 4096) -> None:
+        """Start journaling top-level mutations to ``wal``.  Call after
+        :meth:`restore` so replayed mutations are not re-appended."""
+        with self._lock:
+            self.wal = wal
+            self.snapshot_every = snapshot_every
+
+    # ------------------------------------------------------------------
+    # Replication seam (a replicator feeds these; this package has none
+    # yet)
+    # ------------------------------------------------------------------
+
+    def apply_remote(self, entry: dict) -> None:
+        """Apply one committed entry from the leader's stream (follower
+        side): journal it locally (same seq), then run the mutator without
+        journaling it again.  Takes the canonical lock order
+        (_write_lock → _lock): the mutator's @journaled wrapper acquires
+        _write_lock, so _lock alone here would invert it."""
+        from ..structs import serde
+
+        with self._write_lock, self._lock:
+            if self.wal is not None:
+                self.wal.append_entry(entry)
+            args = [serde.from_wire(a) for a in entry["a"]["args"]]
+            kwargs = {
+                k: serde.from_wire(v)
+                for k, v in entry["a"]["kwargs"].items()
+            }
+            self._applying_remote = True
+            try:
+                getattr(self, entry["op"])(entry["i"], *args, **kwargs)
+            finally:
+                self._applying_remote = False
+            if (
+                self.wal is not None
+                and self.wal.appends_since_snapshot >= self.snapshot_every
+            ):
+                self.write_snapshot()
+
+    def install_snapshot(self, snapshot_wire: dict, seq: int) -> None:
+        """Replace ALL local state with the leader's FSM image (raft
+        InstallSnapshot): reset tables + matrix, restore, persist.
+        Takes the canonical lock order (_write_lock → _lock): the restore
+        replays through mutators whose @journaled wrapper acquires
+        _write_lock — _lock alone here would invert and deadlock.
+
+        The matrix is cleared first, so the next ``NodeMatrix.sync``
+        uploads it in full into new device tensors, and a dispatch in
+        flight sees the version bump and is treated as stale."""
+        with self._write_lock, self._lock:
+            self._reset_tables_locked()
+            self.restore(snapshot_wire, [])
+            if self.wal is not None:
+                self.wal.seq = seq
+                self.wal.write_snapshot(self.to_snapshot_wire())
+
+    def _reset_tables_locked(self) -> None:
+        self.matrix.clear()
+        self.latest_index = 0
+        self._table_index.clear()
+        self.nodes.clear()
+        self.jobs.clear()
+        self.job_versions.clear()
+        self.evals.clear()
+        self.allocs.clear()
+        self.deployments.clear()
+        self.job_summaries.clear()
+        self.periodic_launch.clear()
+        self.scaling_policies.clear()
+        self.scaling_events.clear()
+        self.raft_peers = []
+        self.volumes.clear()
+        self._allocs_by_node.clear()
+        self._allocs_by_job.clear()
+        self._allocs_by_eval.clear()
+        self._evals_by_job.clear()
+        self._deployments_by_job.clear()
+        self._history.clear()
+        self.acl_policies.clear()
+        self.acl_tokens.clear()
+        self._token_by_secret.clear()
+        self.namespaces = {
+            "default": {"Name": "default", "Description": "Default namespace"}
+        }
+
+    def to_snapshot_wire(self) -> dict:
+        """Serialize the full FSM image (matrix excluded — it is rebuilt by
+        replaying restores through the mutators)."""
+        from ..structs import serde
+
+        with self._lock:
+            return {
+                "latest_index": self.latest_index,
+                "table_index": dict(self._table_index),
+                "nodes": [serde.to_wire(n) for n in self.nodes.values()],
+                "job_versions": [
+                    [serde.to_wire(v) for v in versions]
+                    for versions in self.job_versions.values()
+                ],
+                "evals": [serde.to_wire(e) for e in self.evals.values()],
+                "allocs": [serde.to_wire(a) for a in self.allocs.values()],
+                "deployments": [
+                    serde.to_wire(d) for d in self.deployments.values()
+                ],
+                "periodic_launch": [
+                    [ns, jid, t]
+                    for (ns, jid), t in self.periodic_launch.items()
+                ],
+                "scaling_events": [
+                    [ns, jid, g, [serde.to_wire(e) for e in ring]]
+                    for (ns, jid, g), ring in self.scaling_events.items()
+                ],
+                "raft_peers": list(self.raft_peers),
+                "volumes": [
+                    serde.to_wire(v) for v in self.volumes.values()
+                ],
+                "scheduler_config": serde.to_wire(self.scheduler_config),
+                "acl_policies": [
+                    serde.to_wire(p) for p in self.acl_policies.values()
+                ],
+                "acl_tokens": [
+                    serde.to_wire(t) for t in self.acl_tokens.values()
+                ],
+                "namespaces": dict(self.namespaces),
+            }
+
+    def write_snapshot(self) -> None:
+        if self.wal is not None:
+            self.wal.write_snapshot(self.to_snapshot_wire())
+
+    def restore(self, snapshot_wire: Optional[dict], entries: List[dict]) -> None:
+        """Rebuild state (and, via the mutators, the device matrix) from a
+        snapshot image + WAL tail.  Must run before :meth:`attach_wal`."""
+        from ..structs import serde
+
+        # Canonical order (_write_lock → _lock): replayed mutators
+        # re-enter the journaled wrapper, which acquires _write_lock.
+        with self._write_lock, self._lock:
+            self._replaying = True
+            try:
+                if snapshot_wire:
+                    self._restore_snapshot(snapshot_wire, serde)
+                for e in entries:
+                    args = [serde.from_wire(a) for a in e["a"]["args"]]
+                    kwargs = {
+                        k: serde.from_wire(v)
+                        for k, v in e["a"]["kwargs"].items()
+                    }
+                    getattr(self, e["op"])(e["i"], *args, **kwargs)
+            finally:
+                self._replaying = False
+            # Restore re-publishes nothing: everything up to the restored
+            # index is unservable backlog for event subscribers.
+            self.events.mark_history_truncated(self.latest_index)
+
+    def _restore_snapshot(self, snap: dict, serde) -> None:
+        # Replay through the mutators so derived state (matrix rows, alloc
+        # usage aggregates, secondary indexes, summaries) rebuilds itself;
+        # then patch the index/version fields the mutators recompute.
+        for w in snap["nodes"]:
+            node = serde.from_wire(w)
+            create = node.create_index
+            self.upsert_node(node.modify_index, node)
+            node.create_index = create
+        for versions_w in snap["job_versions"]:
+            versions = [serde.from_wire(w) for w in versions_w]
+            for v in versions:
+                wanted_version = v.version
+                create = v.create_index
+                self.upsert_job(v.modify_index, v)
+                v.version = wanted_version
+                v.create_index = create
+        for w in snap["evals"]:
+            ev = serde.from_wire(w)
+            create = ev.create_index
+            self.upsert_evals(ev.modify_index, [ev])
+            ev.create_index = create
+        for w in snap["allocs"]:
+            alloc = serde.from_wire(w)
+            create = alloc.create_index
+            self.upsert_allocs(alloc.modify_index, [alloc])
+            alloc.create_index = create
+        for w in snap["deployments"]:
+            dep = serde.from_wire(w)
+            create = dep.create_index
+            self.upsert_deployment(dep.modify_index, dep)
+            dep.create_index = create
+        for ns, jid, t in snap["periodic_launch"]:
+            self.periodic_launch[(ns, jid)] = t
+        for ns, jid, g, ring in snap.get("scaling_events", []):
+            self.scaling_events[(ns, jid, g)] = [
+                serde.from_wire(w) for w in ring
+            ]
+        self.raft_peers = list(snap.get("raft_peers", []))
+        for w in snap.get("volumes", []):
+            v = serde.from_wire(w)
+            self.volumes[(v.namespace, v.id)] = v
+        self.scheduler_config = serde.from_wire(snap["scheduler_config"])
+        for w in snap.get("acl_policies", []):
+            p = serde.from_wire(w)
+            self.acl_policies[p.name] = p
+        for w in snap.get("acl_tokens", []):
+            t = serde.from_wire(w)
+            self.acl_tokens[t.accessor_id] = t
+            self._token_by_secret[t.secret_id] = t.accessor_id
+        self.namespaces.update(snap.get("namespaces", {}))
+        # Exact index fidelity last — replays bumped these monotonically.
+        self.latest_index = snap["latest_index"]
+        self._table_index = dict(snap["table_index"])
 
 
 class StateSnapshot:

@@ -39,7 +39,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import nomad_tpu_torch.server.server, nomad_tpu_torch.ops.kernels\n"
         "import nomad_tpu_torch.ops.build, nomad_tpu_torch.state.carry\n"
         "import nomad_tpu_torch.scheduler, nomad_tpu_torch.entry\n"
-        "import nomad_tpu_torch.parallel\n"
+        "import nomad_tpu_torch.parallel, nomad_tpu_torch.obs\n"
+        "import nomad_tpu_torch.stream, nomad_tpu_torch.state.wal\n"
+        "import nomad_tpu_torch.structs.serde, nomad_tpu_torch.retry\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -49,6 +51,8 @@ def test_import_loads_no_jax_and_no_reference():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "nomad_tpu_torch.server.server" in loaded
     assert "nomad_tpu_torch.parallel.sharding" in loaded
+    assert "nomad_tpu_torch.obs.evaluator" in loaded
+    assert "nomad_tpu_torch.stream.broker" in loaded
     bad = [m for m in loaded if forbidden(m)]
     assert bad == []
 
