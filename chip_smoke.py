@@ -151,6 +151,36 @@ Phases:
    the restore and install seconds, the full upload's bytes and time,
    the burst's evals/s with the WAL and without, events per topic and the
    observatory's and controller's states; removes the directory.
+10. guarded and traced — a ``Server(device="cuda")`` with the server
+   phase's config and ACLs on, over the 10,000 ``server_node``s: one
+   bootstrap (a second raises), a policy granting ``submit-job`` in
+   ``default`` and a token holding it, which may submit there and nowhere
+   else (an empty and an unknown secret may not).  The 64 burst jobs and
+   node-exporter, written in HCL and parsed by ``jobspec.parse_job``
+   (each equal in ``job_to_api`` to the struct the server phase builds),
+   submitted with the token: exactly 128 fitting allocs and node-exporter
+   on exactly its nodes, through ``fused_place``, ``allocs_fit_verify``
+   and ``system_feasible``, never a plain version (counts zeroed just
+   before).  Every eval of the burst has one trace holding the service
+   path's spans, each lane's device window holds a ``coalescer.launch``
+   span, the registry the 13 ``nomad.phase.*`` timers and the health
+   signals ``plan_queue_wait_p99_ms``; the Perfetto export (in a
+   temporary directory, removed) covers the burst and ``obs.top``
+   renders the breaker's row.  Bursts in the order A, B, B, A, A, B, B,
+   A log the
+   first-pass evals/s with tracing on and off, and with the resolver
+   polling its ticket's event and waiting on a sacrificial thread.  Then the wedge
+   drill, on a server whose breaker has a 200 ms deadline: spins on the
+   card's stream (``torch.cuda._sleep``, calibrated with CUDA events)
+   enqueued through ``run_device_op`` ahead of the next dispatch; one
+   in the slow band gives a slow verdict whose placements are used, one
+   of twice the wedge bound wedges a dispatch (its lanes fail with
+   ``DeviceWedgedError``), trips the breaker, which refuses dispatches
+   (their evals are nacked) until its canary closes it; every one of 16
+   jobs is then placed in full, no plain version having run.  Logs the
+   seconds from the spin to the trip, to the close and to the last
+   placement, and how long an upload returns behind a spin from pageable
+   and from page-locked memory.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -162,9 +192,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -3059,8 +3091,6 @@ def phase_restart(card: str, results: dict) -> None:
     image is then installed into a running server whose matrix is already
     on the card, which places a system job and a burst on it."""
     import collections
-    import shutil
-    import tempfile
 
     import torch
 
@@ -3285,6 +3315,535 @@ def phase_restart(card: str, results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: guarded and traced
+# ---------------------------------------------------------------------------
+
+# The service burst's jobs as an operator writes them (``service_job``'s
+# shape), and node-exporter (``system_jobs``'s first).
+SERVICE_HCL = """
+job "{id}" {{
+  name        = "my-job"
+  type        = "service"
+  priority    = 50
+  datacenters = ["dc1", "dc2", "dc3", "dc4"]
+  group "web" {{
+    count = {count}
+    task "web" {{
+      driver = "mock"
+      resources {{
+        cpu    = {cpu}
+        memory = {memory}
+      }}
+    }}
+  }}
+}}
+"""
+EXPORTER_HCL = """
+# One metrics exporter on every node, on a static port.
+job "node-exporter" {
+  name        = "node-exporter"
+  type        = "system"
+  priority    = 100
+  datacenters = ["dc1", "dc2", "dc3", "dc4"]
+  group "system" {
+    count = 0
+    task "sys" {
+      driver = "mock"
+      resources {
+        cpu    = 100
+        memory = 64
+        network {
+          port "metrics" { static = 9100 }
+        }
+      }
+    }
+  }
+}
+"""
+SUBMIT_POLICY = 'namespace "default" { capabilities = ["submit-job"] }'
+# Every eval of the burst carries these spans in its own trace;
+# coalescer.launch is recorded once per dispatch on the dispatch thread.
+EVAL_SPANS = ("broker.queue_wait", "eval.process", "worker.invoke_scheduler",
+              "coalescer.queue_wait", "coalescer.device", "plan.submit",
+              "plan.queue_wait", "plan.apply")
+PHASE_TIMERS = ("broker.queue_wait", "coalescer.device", "coalescer.launch",
+                "coalescer.queue_wait", "eval.process", "plan.apply",
+                "plan.queue_wait", "plan.submit", "sched.dispatch",
+                "sched.encode", "sched.feasibility", "worker.invoke_scheduler",
+                "worker.wait_for_index")
+# The wedge drill's breaker (NOMAD_TPU_DEVICE_* knobs) and reaper delay.
+# No cooldown: with one, a canary whose verdict lands sooner than the
+# cooldown after the half-open flip leaves the breaker half-open (and a
+# drill whose jobs all place through such canaries ends there).
+DRILL_KNOBS = {"NOMAD_TPU_DEVICE_DEADLINE_MS": "200",
+               "NOMAD_TPU_DEVICE_WEDGE_FACTOR": "1.5",
+               "NOMAD_TPU_DEVICE_PROBATION": "1",
+               "NOMAD_TPU_DEVICE_COOLDOWN": "0"}
+DRILL_UNBLOCK_DELAY_S = 3.0
+DRILL_JOBS = 16
+RETRY_INTERVAL_S = 2.0  # blocked retries after placement conflicts
+# Bursts per comparison, in the order A, B, B, A, A, B, B, A.
+PAIRED_ORDER = (0, 1, 1, 0, 0, 1, 1, 0)
+
+
+def submit_as(srv, secret: str, job):
+    """What the API's register route does: the caller's token must hold
+    ``submit-job`` in the job's namespace."""
+    if not srv.check_acl_capability(secret, "namespace", "submit-job",
+                                    job.namespace):
+        raise PermissionError(f"token may not submit {job.id}")
+    return srv.submit_job(job)
+
+
+def check_acls(srv) -> str:
+    """Bootstrap once, a policy granting submit-job in default and a token
+    holding it; returns the token's secret."""
+    from nomad_tpu_torch.structs.types import ACLPolicy, ACLToken
+
+    boot = srv.bootstrap_acl()
+    try:
+        srv.bootstrap_acl()
+    except PermissionError:
+        pass
+    else:
+        raise AssertionError("acl: a second bootstrap succeeded")
+    srv.store.upsert_acl_policy(srv.next_index(), ACLPolicy(
+        name="deployer", rules=SUBMIT_POLICY))
+    token = ACLToken(name="deployer", type="client", policies=["deployer"])
+    srv.store.upsert_acl_tokens(srv.next_index(), [token])
+    verdicts = {
+        "token in default": srv.check_acl_capability(
+            token.secret_id, "namespace", "submit-job", "default"),
+        "token in other": srv.check_acl_capability(
+            token.secret_id, "namespace", "submit-job", "other"),
+        "empty token": srv.check_acl_capability(
+            "", "namespace", "submit-job", "default"),
+        "unknown secret": srv.check_acl_capability(
+            "not-a-secret", "namespace", "submit-job", "default"),
+        "management in other": srv.check_acl_capability(
+            boot.secret_id, "namespace", "submit-job", "other"),
+    }
+    want = {"token in default": True, "token in other": False,
+            "empty token": False, "unknown secret": False,
+            "management in other": True}
+    if verdicts != want or srv.resolve_token("not-a-secret") is not None:
+        raise AssertionError(f"acl: decisions {verdicts}")
+    log(f"acl: bootstrapped once; decisions {verdicts}")
+    return token.secret_id
+
+
+def hcl_service_job(i: int, prefix: str):
+    """The i-th burst job parsed from HCL; its API form must equal that of
+    ``service_job(i)`` with the same id."""
+    from nomad_tpu_torch.jobspec import job_to_api, parse_job
+
+    want = service_job(i)
+    want.id = f"{prefix}-{i:02d}"
+    r = want.task_groups[0].tasks[0].resources
+    job = parse_job(SERVICE_HCL.format(id=want.id, count=SERVER_COUNT,
+                                       cpu=r.cpu, memory=r.memory_mb))
+    if job_to_api(job) != job_to_api(want):
+        raise AssertionError(f"hcl: {want.id} parses to another job")
+    return job
+
+
+def first_pass(srv, secret: str, jobs, timeout_s: float = 300.0):
+    """Submit ``jobs`` with the token and time until each eval has run once
+    (terminal, or failed into a blocked retry after placement conflicts);
+    then wait for the retries.  Returns (evals, first-pass seconds)."""
+    t0 = time.perf_counter()
+    evals = [submit_as(srv, secret, job) for job in jobs]
+    pending = {e.id for e in evals}
+    while pending:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{len(pending)} evals still open")
+        pending = {eid for eid in pending
+                   if not srv.store.eval_by_id(eid).terminal_status()}
+        if pending:
+            time.sleep(0.002)
+    elapsed = time.perf_counter() - t0
+    for job in jobs:
+        while len(live_allocs(srv, job.id)) != job.task_groups[0].count:
+            if time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"{job.id} not placed in full")
+            time.sleep(0.01)
+    return evals, elapsed
+
+
+def check_spans(srv, evals, card: str, tmp: str) -> None:
+    """Every eval's trace holds the service path's spans; each lane's
+    device window holds a launch span; the registry has the phase timers;
+    the health signals the plan-queue wait; the Perfetto export covers the
+    burst; ``top`` renders the breaker's row."""
+    import bisect
+
+    from nomad_tpu_torch import trace
+    from nomad_tpu_torch.obs import top
+    from nomad_tpu_torch.obs.health import collect_signals
+
+    recs = trace.dump()
+    by = trace.traces_by_id(recs)
+    launches = sorted((r["ts"], r["ts"] + r["dur"]) for r in recs
+                      if r["name"] == "coalescer.launch")
+    starts = [a for a, _ in launches]
+    for ev in evals:
+        mine = by.get(ev.id, [])
+        missing = set(EVAL_SPANS) - {r["name"] for r in mine}
+        if missing:
+            raise AssertionError(f"trace: eval {ev.id} lacks {missing}")
+        for r in mine:
+            if r["name"] != "coalescer.device":
+                continue
+            i = bisect.bisect_left(starts, r["ts"])
+            if i == len(launches) or launches[i][1] > r["ts"] + r["dur"]:
+                raise AssertionError(f"trace: no launch inside eval "
+                                     f"{ev.id}'s device window")
+    snap = srv.metrics.snapshot()
+    timers = {k[len("nomad.phase."):] for k in snap
+              if k.startswith("nomad.phase.")}
+    if set(PHASE_TIMERS) - timers:
+        raise AssertionError(f"trace: phase timers lack "
+                             f"{set(PHASE_TIMERS) - timers}")
+    signals = collect_signals(srv)
+    if "plan_queue_wait_p99_ms" not in signals:
+        raise AssertionError(f"health: signals {sorted(signals)}")
+    path = trace.dump_flight_record(path=str(Path(tmp) / "burst.json"),
+                                    reason="chip-smoke")
+    doc = json.loads(Path(path).read_text())
+    covered = {e["args"]["trace"] for e in doc["traceEvents"]
+               if e.get("ph") == "X"}
+    if not {ev.id for ev in evals} <= covered:
+        raise AssertionError("trace: the export misses evals of the burst")
+    srv.observatory.tick()
+    screen = top.render(snap, srv.observatory.slo_report(),
+                        srv.observatory.health_report(),
+                        overload=srv.overload_controller.report())
+    rows = [ln for ln in screen.splitlines() if ln.startswith("device  :")]
+    if not rows or "closed" not in rows[0]:
+        raise AssertionError(f"top: no closed breaker row in\n{screen}")
+    p = {k: snap["nomad.phase." + k]["p50_ms"] for k in
+         ("coalescer.queue_wait", "coalescer.launch", "coalescer.device",
+          "plan.queue_wait", "plan.apply", "eval.process")}
+    log(f"trace: {len(recs)} records, {len(by)} traces, {len(launches)} "
+        f"launch spans; every eval of the burst has {len(EVAL_SPANS)} "
+        f"spans in its trace; {len(timers)} phase timers, p50 ms "
+        f"{ {k: round(v, 3) for k, v in p.items()} }; export "
+        f"{len(doc['traceEvents'])} events, {os.path.getsize(path)} bytes "
+        f"(card: {card})")
+    log("top: " + rows[0])
+
+
+def thread_wait_fetch(ticket, deadline: float, factor: float):
+    """The reference's way to wait for a ticket under the watchdog: on
+    ``watchdog_fetch``'s sacrificial thread, which synchronises on the
+    ticket's event (no thread when the event is already complete); a
+    stand-in for ``DeviceCoalescer._wait_fetch``, which polls the event,
+    for the comparison bursts."""
+    from nomad_tpu_torch.obs.breaker import STALL_OK, watchdog_fetch
+
+    event = ticket.done_event
+    if event is None or event.query():
+        return STALL_OK, ticket.host.numpy(), 0.0
+
+    def fetch():
+        event.synchronize()
+        return ticket.host.numpy()
+
+    return watchdog_fetch(fetch, deadline, factor)
+
+
+def paired_bursts(srv, secret: str, label: str, a, b, prefix: str) -> dict:
+    """Bursts of SERVER_JOBS jobs under setting ``a`` and ``b`` in the
+    order of PAIRED_ORDER (``a``/``b`` are (name, apply) pairs);
+    first-pass evals/s of each, and the retries they left."""
+    got = {a[0]: [], b[0]: []}
+    for n, (name, apply) in enumerate((a, b)[i] for i in PAIRED_ORDER):
+        apply()
+        jobs = [hcl_service_job(i, f"{prefix}{n}") for i in range(SERVER_JOBS)]
+        evals, elapsed = first_pass(srv, secret, jobs)
+        got[name].append((SERVER_JOBS / elapsed, retried_evals(srv, evals)))
+    log(f"{label}: first-pass evals/s (retried) "
+        + "; ".join(f"{k} {[(round(e, 1), r) for e, r in v]}"
+                    for k, v in got.items()))
+    return {k: [e for e, _ in v] for k, v in got.items()}
+
+
+class NackCounter:
+    """Counts the worker's "scheduler failed" log records by exception
+    type (each is a nack) while installed, and keeps them off stderr."""
+
+    def __init__(self):
+        import logging
+
+        self.counts: dict = {}
+        self.logger = logging.getLogger("nomad_tpu_torch.server.worker")
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger.addHandler(self.handler)
+        self.propagate = self.logger.propagate
+        self.logger.propagate = False
+
+    def _emit(self, record) -> None:
+        name = record.exc_info[1].__class__.__name__ if record.exc_info \
+            else "none"
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def close(self) -> None:
+        self.logger.removeHandler(self.handler)
+        self.logger.propagate = self.propagate
+
+
+def spin_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles per millisecond, from CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rates = []
+    for _ in range(3):
+        start.record()
+        torch.cuda._sleep(50_000_000)
+        end.record()
+        end.synchronize()
+        rates.append(50_000_000 / start.elapsed_time(end))
+    return statistics.median(rates)
+
+
+def upload_while_spinning(rate: float, card: str) -> dict:
+    """How long an upload of the (lanes, N) tg counts takes to return
+    while the stream runs a 300 ms spin: from pageable memory, and through
+    a page-locked copy as the coalescer does."""
+    import torch
+
+    host = np.zeros((LANES, CAPACITY), np.int32)
+    out = {}
+    for name, make in (("pageable", lambda: torch.from_numpy(host)),
+                       ("page-locked",
+                        lambda: torch.from_numpy(host).pin_memory())):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(rate * 300))
+        t0 = time.perf_counter()
+        make().to("cuda", non_blocking=True)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    log(f"drill: a {host.nbytes}-byte upload behind a 300 ms spin returns "
+        f"after {out['pageable']:.3f} ms from pageable memory, "
+        f"{out['page-locked']:.3f} ms through a page-locked copy "
+        f"(card: {card})")
+    return out
+
+
+def wedge_drill(card: str, out: dict) -> None:
+    """A server whose breaker has a 200 ms deadline: a spin on the card's
+    stream ahead of a dispatch in the slow band gives a slow verdict whose
+    placements are used; a longer one wedges a dispatch, trips the
+    breaker, which refuses dispatches while open (their evals are nacked),
+    and closes through its canary; every job is placed in full after."""
+    import torch
+
+    from nomad_tpu_torch.obs.breaker import BREAKER_CLOSED
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+
+    cfg = server_config()
+    cfg.failed_eval_unblock_delay = DRILL_UNBLOCK_DELAY_S
+    cfg.failed_eval_unblock_interval = RETRY_INTERVAL_S
+    saved = {name: os.environ.get(name) for name in DRILL_KNOBS}
+    os.environ.update(DRILL_KNOBS)
+    try:
+        srv = Server(cfg, device="cuda")
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    coal = srv.coalescer
+    brk = coal.breaker
+    deadline_ms = brk.cfg.deadline_ms
+    bound_ms = deadline_ms * brk.cfg.wedge_factor
+    # The breaker's verdict on each dispatch, and the launches: every
+    # launch must follow an admitting verdict.
+    verdicts, launched = [], []
+    allow, dispatch = brk.allow_device_dispatch, coal._dispatch
+
+    def watched_allow(*a, **kw):
+        verdicts.append(allow(*a, **kw))
+        return verdicts[-1]
+
+    def watched_dispatch(batch):
+        launched.append(len(batch))
+        return dispatch(batch)
+
+    brk.allow_device_dispatch = watched_allow
+    coal._dispatch = watched_dispatch
+    srv.start()
+    nacks = NackCounter()
+    try:
+        register_cluster(srv, "drill", preload=False)
+        secret = ""  # ACLs are off on this server
+        first_pass(srv, secret, [hcl_service_job(i, "drill-w")
+                                 for i in range(DRILL_JOBS)])
+        rate = spin_cycles_per_ms()
+        out["upload_ms"] = upload_while_spinning(rate, card)
+        k.reset_counts()
+
+        # Slow: a spin that ends inside (deadline, deadline x factor] of
+        # the dispatch's wait (the wait starts a few ms after the spin).
+        slows = brk.slows_total
+        spin_ms = (deadline_ms + bound_ms) / 2 + 10.0
+        coal.run_device_op(lambda: torch.cuda._sleep(int(rate * spin_ms)))
+        job = hcl_service_job(0, "drill-slow")
+        first_pass(srv, secret, [job])
+        if brk.slows_total != slows + 1 or brk.state != BREAKER_CLOSED:
+            raise AssertionError(f"drill: a {spin_ms:.0f} ms spin gave "
+                                 f"{brk.report()['outcomes']}")
+        log(f"drill: a {spin_ms:.0f} ms spin ahead of a dispatch gave a slow "
+            f"verdict; its {SERVER_COUNT} placements were used")
+
+        # Wedge: the spin outlasts the wedge bound twice over.
+        spin_ms = 2 * bound_ms
+        t_spin = time.time()
+        coal.run_device_op(lambda: torch.cuda._sleep(int(rate * spin_ms)))
+        jobs = [hcl_service_job(i, "drill") for i in range(DRILL_JOBS)]
+        for j in jobs:
+            srv.submit_job(j)
+        t0 = time.perf_counter()
+        while any(len(live_allocs(srv, j.id)) != SERVER_COUNT for j in jobs):
+            if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+                raise AssertionError("drill: jobs not placed after the wedge")
+            time.sleep(0.005)
+        t_last = time.time()
+        wait_quiet(srv, "drill")
+        report = brk.report()
+        path = [(d["from"], d["to"], d["at"]) for d in report["decisions"]]
+        trip = next((at for f, t, at in path if t == "open"), None)
+        close = next((at for f, t, at in path
+                      if f == "half_open" and t == "closed"), None)
+        health = srv.observatory.tick()["device"]
+        launches = path_launches(k)
+        gauge = srv.metrics.snapshot()["nomad.coalescer.wedged_dispatches"]
+        if (trip is None or close is None or close < trip
+                or report["state"] != BREAKER_CLOSED):
+            raise AssertionError(f"drill: breaker path {path}")
+        if coal.wedged_dispatches < 1 or gauge < 1 or health["trips"] < 1:
+            raise AssertionError(f"drill: wedged {coal.wedged_dispatches}, "
+                                 f"gauge {gauge}, health {health}")
+        if nacks.counts.get("DeviceWedgedError", 0) < 1:
+            raise AssertionError(f"drill: nacks {nacks.counts}")
+        admitted = sum(1 for ok, _ in verdicts if ok)
+        refused = len(verdicts) - admitted
+        if len(launched) != admitted or refused != report[
+                "degraded_dispatches"] or refused < 1:
+            raise AssertionError(f"drill: {len(launched)} launches, "
+                                 f"{admitted} admitted, {refused} refused")
+        if launches["plain"] or launches["fused_place"] <= 0:
+            raise AssertionError(f"drill: launches {launches}")
+        failed = sum(1 for e in srv.store.evals.values()
+                     if e.status == "failed" and e.job_id.startswith("drill-"))
+        out.update({
+            "spin_to_trip_s": trip - t_spin, "trip_to_close_s": close - trip,
+            "spin_to_last_placement_s": t_last - t_spin,
+            "wedged_dispatches": coal.wedged_dispatches,
+            "refused_dispatches": report["degraded_dispatches"],
+            "nacks": dict(nacks.counts), "failed_evals": failed,
+            "path": [(f, t) for f, t, _ in path], "launches": launches,
+        })
+        log(f"drill: a {spin_ms:.0f} ms spin; trip {trip - t_spin:.3f} s "
+            f"after it, closed {close - trip:.3f} s after the trip, the last "
+            f"of {DRILL_JOBS} jobs placed {t_last - t_spin:.3f} s after the "
+            f"spin; breaker {out['path']}; {coal.wedged_dispatches} wedged "
+            f"dispatches, {report['degraded_dispatches']} refused, nacks "
+            f"{nacks.counts}, {failed} evals failed into reaper follow-ups; "
+            f"health device {health}; launches {launches} (card: {card})")
+    finally:
+        nacks.close()
+        srv.shutdown()
+
+
+def phase_guarded(card: str, results: dict) -> None:
+    """ACLs, HCL jobs, spans and their exports on a server of the server
+    phase's shape; the burst with tracing on and off, and with the
+    resolver polling and waiting on a sacrificial thread; then the wedge
+    drill."""
+    from nomad_tpu_torch import trace
+    from nomad_tpu_torch.jobspec import job_to_api, parse_job
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+
+    out = results.setdefault("guarded", {})
+    tmp = tempfile.mkdtemp(prefix="nomad-trace-")
+    srv = None
+    try:
+        cfg = server_config()
+        cfg.acl_enabled = True
+        cfg.failed_eval_unblock_interval = RETRY_INTERVAL_S
+        srv = Server(cfg, device="cuda")
+        srv.start()
+        secret = check_acls(srv)
+        register_cluster(srv, "guarded")
+
+        # The HCL burst and node-exporter, submitted with the token.
+        exporter = parse_job(EXPORTER_HCL)
+        if job_to_api(exporter) != job_to_api(system_jobs()[0]):
+            raise AssertionError("hcl: node-exporter parses to another job")
+        jobs = [hcl_service_job(i, "hcl") for i in range(SERVER_JOBS)]
+        try:
+            submit_as(srv, "", jobs[0])
+        except PermissionError:
+            pass
+        else:
+            raise AssertionError("acl: an empty token submitted a job")
+        trace.configure(enabled=True)
+        trace.clear()
+        k.reset_counts()
+        evals, elapsed = first_pass(srv, secret, jobs)
+        counts = check_burst(srv, evals, "guarded burst")
+        check_spans(srv, evals, card, tmp)
+        # The nodes with room for it, counted before it places.
+        want = system_targets(srv, exporter, lambda n: True)
+        ev = submit_as(srv, secret, exporter)
+        t0 = time.perf_counter()
+        while not srv.store.eval_by_id(ev.id).terminal_status():
+            if time.perf_counter() - t0 > LIFECYCLE_TIMEOUT_S:
+                raise AssertionError("hcl: node-exporter eval not terminal")
+            time.sleep(0.005)
+        expect_system(srv, exporter, want, "guarded")
+        launches = path_launches(k)
+        check_path_launches(launches, "guarded")
+        out.update({"hcl_evals_per_s": SERVER_JOBS / elapsed,
+                    "retried": counts["retried"], "launches": launches})
+        log(f"guarded: {SERVER_JOBS} HCL jobs submitted with the token, "
+            f"{counts['allocs']} allocations ({counts['retried']} retried), "
+            f"first pass {SERVER_JOBS / elapsed:.1f} evals/s; node-exporter "
+            f"on its {len(live_allocs(srv, exporter.id))} nodes; launches "
+            f"{launches} (card: {card})")
+
+        out["tracing"] = paired_bursts(
+            srv, secret, "tracing", ("on", lambda: trace.configure(
+                enabled=True)), ("off", lambda: trace.configure(
+                    enabled=False)), "tr")
+        trace.configure(enabled=True)
+        coal = srv.coalescer
+        poll_wait = coal._wait_fetch
+        out["wait"] = paired_bursts(
+            srv, secret, "resolver wait",
+            ("poll", lambda: setattr(coal, "_wait_fetch", poll_wait)),
+            ("thread", lambda: setattr(coal, "_wait_fetch",
+                                       thread_wait_fetch)),
+            "wt")
+        coal._wait_fetch = poll_wait
+        srv.shutdown()
+        srv = None
+        wedge_drill(card, out)
+    finally:
+        trace.configure(enabled=True)
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3300,6 +3859,20 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The observatory's breach dumps go to a temporary directory, removed
+    # at the end.
+    traces = tempfile.mkdtemp(prefix="nomad-smoke-traces-")
+    os.environ["NOMAD_TPU_TRACE_DIR"] = traces
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(traces, ignore_errors=True)
+
+
+def run_phases() -> int:
+    """Every phase, then the kernel table and the result line."""
+    import torch
+
     card = card_line()
     log(f"card: {card}")
     t_start = time.perf_counter()
@@ -3339,6 +3912,7 @@ def main() -> int:
           build_cluster(N_NODES, CAPACITY, "cuda"), card, results)
     timed("plan verify", phase_plan_verify, card, m, recorder, results)
     timed("restart", phase_restart, card, results)
+    timed("guarded", phase_guarded, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "

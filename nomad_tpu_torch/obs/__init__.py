@@ -8,11 +8,29 @@ the leader's :class:`~.evaluator.SLOObservatory`, fanned out as ``SLO`` /
 :class:`~.controller.OverloadController`: pressure + burn rates drive
 admission gating and priority shedding.
 
-A copy of the reference package's ``obs`` without the device breaker
-(``breaker.py``) and the ``top`` dashboard, which are not part of this
-package yet.
+The device fault domain lives in :mod:`.breaker`: the coalescer's
+fetch watchdog (:func:`~.breaker.watchdog_fetch`), the wedged-vs-slow
+verdict (:func:`~.breaker.classify_stall`), and the
+closed→open→half-open :class:`~.breaker.DeviceBreaker`, under which a
+sick card's dispatches are refused (:class:`~.breaker.DeviceBreakerOpenError`)
+rather than scored on the host.  Its ``brief()`` rides on the health
+report as the ``device`` block, and :mod:`.top` renders it.
 """
 
+from .breaker import (
+    BREAKER_CLOSED,
+    BREAKER_HALF_OPEN,
+    BREAKER_OPEN,
+    BreakerConfig,
+    DeviceBreaker,
+    DeviceBreakerOpenError,
+    DeviceWedgedError,
+    STALL_OK,
+    STALL_SLOW,
+    STALL_WEDGED,
+    classify_stall,
+    watchdog_fetch,
+)
 from .controller import (
     OverloadConfig,
     OverloadController,
@@ -32,6 +50,13 @@ from .slo import (
 )
 
 __all__ = [
+    "BREAKER_CLOSED",
+    "BREAKER_HALF_OPEN",
+    "BREAKER_OPEN",
+    "BreakerConfig",
+    "DeviceBreaker",
+    "DeviceBreakerOpenError",
+    "DeviceWedgedError",
     "OverloadConfig",
     "OverloadController",
     "SLOEngine",
@@ -40,12 +65,17 @@ __all__ = [
     "STATE_GATING",
     "STATE_SHEDDING",
     "STATE_STEADY",
+    "STALL_OK",
+    "STALL_SLOW",
+    "STALL_WEDGED",
     "STATUS_BREACHED",
     "STATUS_OK",
     "STATUS_PENDING",
     "TOPIC_HEALTH",
     "TOPIC_SLO",
+    "classify_stall",
     "collect_signals",
     "compute_health",
     "default_slos",
+    "watchdog_fetch",
 ]

@@ -9,18 +9,19 @@ composite health score, and
   ``Health`` topic events when the status band moves — the same stream
   the store's change events ride, so a subscriber sees breaches inline
   with the cluster lifecycle events;
+* dumps the flight recorder (``trace.dump_flight_record``) on a breach
+  transition, with the breached SLO's name and burn rates in the
+  metadata;
 * serves :meth:`SLOObservatory.slo_report` and
   :meth:`SLOObservatory.health_report` from its last tick (computing on
-  demand before the first one), and exposes the score as registry
-  gauges (``nomad.health.*``, ``nomad.slo.*``);
+  demand before the first one), with the device breaker's ``brief()``
+  as the health report's ``device`` block, and exposes the score as
+  registry gauges (``nomad.health.*``, ``nomad.slo.*``);
 * steps the :class:`~.controller.OverloadController` with the report it
   just computed.
 
 A tick is a handful of locked counter reads plus one windowed-percentile
-walk per timer SLO.  A copy of the reference package's observatory
-without the flight-recorder dump on a breach and the device breaker's
-block in the health report: the tracing recorder and the breaker are
-not part of this package yet.
+walk per timer SLO.  A copy of the reference package's observatory.
 """
 
 from __future__ import annotations
@@ -39,6 +40,32 @@ log = logging.getLogger(__name__)
 
 TOPIC_SLO = "SLO"
 TOPIC_HEALTH = "Health"
+
+# SLO breach dumps get their OWN per-process budget, separate from
+# trace.auto_dump's shared cap: targets can legitimately burn hot on an
+# idle or small cluster, and a few breach dumps must not starve the
+# other automatic dumps that share auto_dump.
+_BREACH_DUMP_CAP = 4
+_breach_dump_lock = threading.Lock()
+_breach_dumps_used = 0
+
+
+def _breach_dump(reason: str, extra: dict) -> Optional[str]:
+    global _breach_dumps_used
+    from ..trace import core
+    from ..trace.export import dump_flight_record
+
+    if core.recorder().span_count() == 0:
+        return None
+    with _breach_dump_lock:
+        if _breach_dumps_used >= _BREACH_DUMP_CAP:
+            return None
+        _breach_dumps_used += 1
+    try:
+        return dump_flight_record(reason=reason, extra=extra)
+    except Exception:  # noqa: BLE001
+        return None
+
 
 class SLOObservatory:
     """Owns the engine + health state for one server.
@@ -65,6 +92,7 @@ class SLOObservatory:
         self._last_signals: Dict[str, float] = {}
         self._hb_levels = RollingWindow(maxlen=512)
         self.ticks = 0
+        self.breach_dumps: List[str] = []
         self._register_gauges()
 
     # -- lifecycle -----------------------------------------------------
@@ -106,10 +134,21 @@ class SLOObservatory:
         report = health_mod.compute_health(
             signals, breached_slos=self.engine.breached(), now=now
         )
-        events: List[Event] = [
-            self._slo_event(spec, old, new, now)
-            for spec, old, new in transitions
-        ]
+        # The device fault domain rides on the health report, so one
+        # read answers "is the card path live or refusing dispatches"
+        # beside cluster health.  Guarded — a breaker bug must not stop
+        # SLO evaluation.
+        coal = getattr(srv, "coalescer", None)
+        if coal is not None:
+            try:
+                report["device"] = coal.breaker.brief()
+            except Exception:  # noqa: BLE001
+                log.exception("device breaker brief failed")
+        events: List[Event] = []
+        for spec, old, new in transitions:
+            events.append(self._slo_event(spec, old, new, now))
+            if new == STATUS_BREACHED:
+                self._dump_breach(spec, now)
         with self._lock:
             prev = self._last_health
             self._last_health = report
@@ -185,7 +224,7 @@ class SLOObservatory:
             self._hb_levels.observe(float(level), ts=now)
         return self._hb_levels.rate_of_change(60.0, now=now)
 
-    # -- events ---------------------------------------------------------
+    # -- events + breach dumps -----------------------------------------
 
     def _event_index(self) -> int:
         # Observations are not FSM commits; riding the store's latest
@@ -226,6 +265,29 @@ class SLOObservatory:
                 "at": now,
             },
         )
+
+    def _dump_breach(self, spec: SLOSpec, now: float) -> None:
+        st = self.engine.state(spec.name)
+        fast, _ = self.engine._burn(st, spec.windows[0], now)
+        slow, _ = self.engine._burn(st, spec.windows[1], now)
+        path = _breach_dump(
+            "slo-breach-%s" % spec.name,
+            extra={
+                "breached_slo": spec.name,
+                "objective": spec.objective,
+                "target": spec.target,
+                "value": round(st.last_value, 4),
+                "burn_rate_fast": round(fast, 4),
+                "burn_rate_slow": round(slow, 4),
+            },
+        )
+        if path:
+            self.breach_dumps.append(path)
+            log.warning(
+                "SLO %s breached (value=%.4g target=%s%s) — "
+                "flight record dumped: %s",
+                spec.name, st.last_value, spec.op, spec.target, path,
+            )
 
     # -- read surface (the reference's /v1/slo, /v1/health; gauges) ----
 

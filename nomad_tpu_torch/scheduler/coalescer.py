@@ -13,12 +13,25 @@ pick's fit to the plan applier.
 The loop is a producer/consumer pipeline, as in the JAX package:
 
 * the **dispatch thread** only launches.  On the card each dispatch
-  launches on the current stream and records a ``torch.cuda.Event``; up to
-  ``pipeline_depth`` launches (env ``NOMAD_TPU_PIPELINE_DEPTH``, default 8)
-  overlap.  On the CPU the dispatch runs the plain version synchronously.
-* a **resolver thread** waits on each ticket's event, does the one
-  ``.cpu()`` of its packed result, and completes the futures in launch
-  order.
+  launches its kernels on the current stream, enqueues the packed
+  result's copy into a page-locked host tensor right behind them, and
+  records a ``torch.cuda.Event`` after the copy; up to ``pipeline_depth``
+  launches (env ``NOMAD_TPU_PIPELINE_DEPTH``, default 8) overlap.  On the
+  CPU the dispatch runs the plain version synchronously.
+* a **resolver thread** polls each ticket's event alone — so the wait
+  covers that ticket's kernels and copy and nothing launched after it —
+  under the device breaker's watchdog (``obs/breaker.py``), and completes
+  the futures in launch order.
+
+The device fault domain: the resolver classifies every wait ok / slow /
+wedged; a wedged ticket is abandoned and its lanes fail with
+``DeviceWedgedError``.  The breaker gates every dispatch: while it is
+open, or half-open with its one canary launch in flight, a dispatch
+launches nothing and its lanes fail with ``DeviceBreakerOpenError``.
+Both errors reach the worker, which nacks the eval.  The reference
+degrades to a host twin instead; on the card that would be a silent
+fallback from the kernel to its plain version, which this package never
+takes.
 
 Because overlapped dispatches read a matrix that plans committed during
 their flight may mutate, each ticket records ``matrix.version`` at launch;
@@ -50,6 +63,15 @@ import torch
 
 from .. import trace
 from ..device import resolve_device
+from ..obs.breaker import (
+    STALL_OK,
+    STALL_SLOW,
+    STALL_WEDGED,
+    DeviceBreaker,
+    DeviceBreakerOpenError,
+    DeviceWedgedError,
+    classify_stall,
+)
 from ..ops import kernels
 from ..ops.encode import RequestSlab, SchedRequest
 from ..retry import env_int
@@ -63,11 +85,38 @@ MAX_DELTA_ROWS = 32
 
 _DEPTH_ENV = "NOMAD_TPU_PIPELINE_DEPTH"
 _MEGABATCH_ENV = "NOMAD_TPU_MEGABATCH"
+# How long the stop path waits for the resolver before it fails the
+# queued tickets and the one the resolver is stuck on.
+_JOIN_WINDOW_S = 10.0
 
 
 def default_pipeline_depth() -> int:
     """Overlapping dispatches kept in flight (env-tunable, default 8)."""
     return max(1, env_int(_DEPTH_ENV, 8))
+
+
+def poll_until(done, deadline_s: float, wedge_factor: float):
+    """Poll ``done()`` with growing naps (20 µs to 1 ms) until it is true
+    or the watchdog's wedge bound (``deadline_s * wedge_factor``; none when
+    ``deadline_s <= 0``) has passed; returns ``(verdict, elapsed_s)``, the
+    verdict ``classify_stall``'s, ``wedged`` if the bound passed first.
+
+    The resolver's wait on a ticket's CUDA event.  The reference waits on
+    a sacrificial thread (``obs.breaker.watchdog_fetch``); polling the
+    event never blocks in a call that cannot be interrupted and starts no
+    thread, and gave the better median burst throughput on an H100
+    (PERF.md §6 has both measured)."""
+    bound = deadline_s * wedge_factor if deadline_s > 0 else float("inf")
+    t0 = time.monotonic()
+    nap = 20e-6
+    while not done():
+        elapsed = time.monotonic() - t0
+        if elapsed > bound:
+            return STALL_WEDGED, elapsed
+        time.sleep(nap)
+        nap = min(2 * nap, 1e-3)
+    elapsed = time.monotonic() - t0
+    return classify_stall(elapsed, deadline_s, wedge_factor), elapsed
 
 
 def megabatch_enabled() -> bool:
@@ -123,19 +172,27 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     outcome: Optional[PlaceOutcome] = None
     error: Optional[BaseException] = None
+    # Trace context captured on the submitting worker's thread (place());
+    # the dispatch thread stitches coalescer.queue_wait onto it and the
+    # resolver thread stitches coalescer.device — the launch→resolver hop.
+    trace_ctx: Optional[trace.SpanContext] = None
 
 
 @dataclass
 class _Ticket:
-    """One in-flight dispatch: the packed result (a tensor on the card with
-    the event that marks it complete, or a CPU tensor), its lanes, and the
-    matrix version its inputs were synced at."""
+    """One in-flight dispatch: the host tensor its packed result lands in
+    (page-locked, filled by a copy the event marks complete; or the CPU
+    result itself, with no event), its lanes, and the matrix version its
+    inputs were synced at."""
 
-    packed: torch.Tensor
+    host: torch.Tensor
     done_event: Optional["torch.cuda.Event"]
     entries: List[_Pending]
     matrix_version: int
     launched_at: float = 0.0
+    # True when this launch is the half-open breaker's single probe; its
+    # wait's verdict decides whether the card path is re-admitted.
+    canary: bool = False
 
 
 class DeviceCoalescer:
@@ -190,6 +247,15 @@ class DeviceCoalescer:
         self.fused_dispatches = 0
         self.fused_lanes = 0
         self._features: Optional[kernels.Features] = None
+        # Device fault domain (obs/breaker.py): the resolver classifies
+        # every wait ok/slow/wedged under the watchdog deadline; the
+        # breaker gates each dispatch.  Wedged tickets count here (their
+        # futures raise DeviceWedgedError).
+        self.breaker = DeviceBreaker(metrics=metrics)
+        self.wedged_dispatches = 0
+        # The ticket the resolver is waiting on (the stop path fails its
+        # lanes if the resolver misses its join window).
+        self._resolving: Optional[_Ticket] = None
 
     # ------------------------------------------------------------------
 
@@ -197,6 +263,10 @@ class DeviceCoalescer:
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
+        # A fresh leadership term probes the card fresh — a breaker left
+        # open by the previous term would refuse every dispatch of the new
+        # one until its probation ran out.
+        self.breaker.reset()
         # The pipeline bound: a launch consumes a permit, the resolver
         # returns it after the fetch, so exactly pipeline_depth dispatches
         # overlap.  The ticket queue itself never blocks.
@@ -250,6 +320,7 @@ class DeviceCoalescer:
             host_mask=host_mask,
             n_live=n_live,
             enqueued_at=time.time(),
+            trace_ctx=trace.current(),
         )
         with self._cond:
             if self._stop.is_set():
@@ -296,29 +367,72 @@ class DeviceCoalescer:
             # Wait for a pipeline slot BEFORE launching: the permit bounds
             # overlapping dispatches (and how stale an in-flight read can
             # get).  Requests arriving meanwhile coalesce into the next
-            # batch.
-            self._depth_sem.acquire()
-            waited = time.time()
-            if self.metrics is not None:
-                qw = self.metrics.timer("nomad.coalescer.queue_wait")
-                for p in batch:
-                    qw.observe(max(0.0, waited - p.enqueued_at))
-            try:
-                with trace.span("coalescer.launch", lanes=len(batch),
-                                metrics=self.metrics):
-                    packed, event, version = self._dispatch(batch)
-            except BaseException as exc:  # noqa: BLE001
-                self._depth_sem.release()
-                for p in batch:
-                    p.error = exc
-                    p.done.set()
-                continue
-            self.dispatches += 1
-            self.coalesced_requests += len(batch)
-            self.inflight += 1
-            self._tickets.put(
-                _Ticket(packed, event, batch, version, launched_at=waited)
-            )
+            # batch.  The wait gives way to stop(): a resolver stuck on a
+            # wedged card may hold every permit.
+            while not self._depth_sem.acquire(timeout=0.1):
+                if self._stop.is_set():
+                    self._fail(batch, RuntimeError("coalescer stopped"))
+                    self._shutdown_pipeline()
+                    return
+            self._launch(batch)
+
+    def _launch(self, batch: List[_Pending]) -> None:
+        """With a pipeline permit held: record the lanes' queue waits, ask
+        the breaker, launch and hand the ticket to the resolver; or fail
+        the lanes and return the permit."""
+        waited = time.time()
+        if self.metrics is not None:
+            qw = self.metrics.timer("nomad.coalescer.queue_wait")
+            for p in batch:
+                qw.observe(max(0.0, waited - p.enqueued_at))
+        # Stitch each lane's enqueue→launch wait onto its eval trace
+        # (carried here from the worker thread on _Pending.trace_ctx).
+        for p in batch:
+            if p.trace_ctx is not None:
+                trace.record_span(
+                    "coalescer.queue_wait",
+                    p.enqueued_at,
+                    waited,
+                    ctx=p.trace_ctx,
+                    metrics=self.metrics,
+                )
+        # Device fault domain: while the breaker is open the dispatch
+        # launches nothing and its lanes fail with a typed error (the
+        # worker nacks the evals); half-open admits exactly one canary
+        # launch whose wait's verdict decides re-admission.
+        allowed, canary = self.breaker.allow_device_dispatch()
+        if not allowed:
+            self.breaker.note_degraded()
+            self._depth_sem.release()
+            self._fail(batch, DeviceBreakerOpenError(self.breaker.state))
+            return
+        try:
+            with trace.span("coalescer.launch", lanes=len(batch),
+                            metrics=self.metrics):
+                host, event, version = self._dispatch(batch)
+        except BaseException as exc:  # noqa: BLE001
+            if canary:
+                # The probe died before producing a verdict — release the
+                # slot so half-open can retry.
+                self.breaker.cancel_canary()
+            self._depth_sem.release()
+            self._fail(batch, exc)
+            return
+        self.dispatches += 1
+        self.coalesced_requests += len(batch)
+        self.inflight += 1
+        self._tickets.put(
+            _Ticket(host, event, batch, version, launched_at=waited,
+                    canary=canary)
+        )
+
+    @staticmethod
+    def _fail(lanes: List[_Pending], err: BaseException) -> None:
+        """Complete every lane not yet done with ``err``."""
+        for p in lanes:
+            if not p.done.is_set():
+                p.error = err
+                p.done.set()
 
     def _shutdown_pipeline(self) -> None:
         """Stop path: fail queued work, let the resolver drain in-flight
@@ -331,13 +445,20 @@ class DeviceCoalescer:
         for op in leftover_ops:
             op.error = err
             op.done.set()
-        for p in leftover_q:
-            p.error = err
-            p.done.set()
+        self._fail(leftover_q, err)
         self._tickets.put(None)  # sentinel after every real ticket
-        self._resolver.join(timeout=10)
+        self._resolver.join(timeout=_JOIN_WINDOW_S)
         if self._resolver.is_alive():
+            # The resolver missed its join window (a wait past every
+            # watchdog bound, or the watchdog disabled): fail whatever is
+            # still queued, and the lanes of the ticket it is stuck on, so
+            # no caller blocks past shutdown.
             self._fail_queued_tickets(err)
+            stuck = self._resolving
+            if stuck is not None:
+                if stuck.canary:
+                    self.breaker.cancel_canary()
+                self._fail(stuck.entries, err)
 
     def _fail_queued_tickets(self, err: BaseException) -> None:
         """Drain the ticket queue and fail every undone future, with the
@@ -349,10 +470,9 @@ class DeviceCoalescer:
                 return
             if ticket is None:
                 continue
-            for p in ticket.entries:
-                if not p.done.is_set():
-                    p.error = err
-                    p.done.set()
+            if ticket.canary:
+                self.breaker.cancel_canary()
+            self._fail(ticket.entries, err)
             self.inflight -= 1
             try:
                 self._depth_sem.release()
@@ -369,17 +489,16 @@ class DeviceCoalescer:
                 ticket = self._tickets.get()
                 if ticket is None:
                     return
+                self._resolving = ticket
                 try:
                     self._resolve(ticket)
                 except BaseException as exc:  # noqa: BLE001
                     # Fail the lanes and keep the resolver alive: the
                     # accounting below must run, or the dispatch loop
                     # deadlocks on a permit that never comes back.
-                    for p in ticket.entries:
-                        if not p.done.is_set():
-                            p.error = exc
-                            p.done.set()
+                    self._fail(ticket.entries, exc)
                 finally:
+                    self._resolving = None
                     self.inflight -= 1
                     self._depth_sem.release()
                     with self._cond:
@@ -457,10 +576,11 @@ class DeviceCoalescer:
         return st
 
     def _dispatch(self, batch: List[_Pending]):
-        """Launch one fused or staged dispatch; returns (packed result,
-        completion event or None on the CPU, matrix version at launch).
-        The staged dispatch launches the ``k`` live lanes only, at full
-        features, as the reference's staged path (no ``features=``)."""
+        """Launch one fused or staged dispatch; returns (host tensor of the
+        packed result, completion event or None on the CPU, matrix version
+        at launch).  The staged dispatch launches the ``k`` live lanes
+        only, at full features, as the reference's staged path (no
+        ``features=``)."""
         with DEVICE_LOCK:
             arrays = self.matrix.sync(self.device)
             version = self.matrix.version
@@ -513,9 +633,17 @@ class DeviceCoalescer:
         dev = arrays.used.device
 
         def up(a: np.ndarray) -> torch.Tensor:
-            # Pageable-memory copies are staged before the call returns, so
-            # the staging buffers can be rewritten by the next dispatch.
-            return torch.from_numpy(a).to(dev, non_blocking=True)
+            # The operands travel through a page-locked copy, so the upload
+            # only enqueues: from pageable memory an upload of MiBs (the
+            # (lanes, N) tg counts) waits for every launch queued before
+            # it, and a stuck stream would stall this thread outside the
+            # resolver's watchdog.  The copy also frees the staging
+            # buffers for the next dispatch at once; torch's caching host
+            # allocator reuses a page-locked block only after its upload.
+            t = torch.from_numpy(a)
+            if dev.type == "cuda":
+                t = t.pin_memory()
+            return t.to(dev, non_blocking=True)
 
         if self.megabatch:
             packed = kernels.fused_place_batch(
@@ -532,17 +660,86 @@ class DeviceCoalescer:
                 up(sc[:k]), up(pen[:k]), up(ri[:k]), up(rf[:k]),
                 up(ce[:k]), up(hm[:k]), n_placements=self.scan_length,
             )
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return packed, event, version
+        if dev.type != "cuda":
+            return packed, None, version
+        # One ticket, one copy, behind its own kernels only: the copy is
+        # enqueued on the stream right after them and the event after the
+        # copy, so the resolver's wait covers this dispatch and nothing
+        # launched later.  The page-locked tensor is allocated per ticket:
+        # the outcomes are numpy views of it, and torch's caching host
+        # allocator hands a block out again only after its copy has
+        # completed and its last view is gone.
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event, version
+
+    def _wait_fetch(self, ticket: _Ticket, deadline: float, factor: float):
+        """Wait for the ticket's result under the watchdog; returns
+        ``(verdict, packed result as numpy or None when wedged, elapsed
+        seconds)``.  With no event (the CPU path: the result is already on
+        the host) it is ``ok`` at once; otherwise the ticket's event alone
+        is polled (``poll_until``)."""
+        event = ticket.done_event
+        if event is None:
+            return STALL_OK, ticket.host.numpy(), 0.0
+        verdict, elapsed = poll_until(event.query, deadline, factor)
+        if verdict == STALL_WEDGED:
+            return verdict, None, elapsed
+        return verdict, ticket.host.numpy(), elapsed
 
     def _resolve(self, ticket: _Ticket) -> None:
-        if ticket.done_event is not None:
-            ticket.done_event.synchronize()
-        arr = ticket.packed.cpu().numpy()  # ONE device→host copy
         entries = ticket.entries
+        brk = self.breaker
+        deadline = brk.deadline_s()
+        try:
+            verdict, arr, elapsed = self._wait_fetch(
+                ticket, deadline, brk.cfg.wedge_factor
+            )
+        except BaseException as exc:  # noqa: BLE001
+            if ticket.canary:
+                brk.cancel_canary()
+            self._fail(entries, exc)
+            return
+        if verdict == STALL_WEDGED:
+            # The wait blew through the wedge bound: abandon it, trip the
+            # breaker, and complete every lane with the typed error — the
+            # worker's exception path nacks the eval.  Later tickets still
+            # resolve in launch order; the pipeline permit is returned by
+            # _resolve_loop's finally.
+            brk.record_wedge(elapsed, canary=ticket.canary)
+            self.wedged_dispatches += 1
+            trace.event(
+                "coalescer.wedged_dispatch",
+                lanes=len(entries),
+                elapsed_ms=round(elapsed * 1e3, 1),
+            )
+            self._fail(entries, DeviceWedgedError(
+                f"device fetch wedged after {elapsed * 1e3:.0f}ms "
+                f"(deadline {deadline * 1e3:.0f}ms)",
+                elapsed_s=elapsed,
+                deadline_s=deadline,
+            ))
+            return
+        if verdict == STALL_SLOW:
+            brk.record_slow(elapsed, canary=ticket.canary)
+        else:
+            brk.record_ok(elapsed, canary=ticket.canary)
+        resolved_at = time.time()
+        # The launch→resolver hop: each lane's device window (launch to
+        # result on the host) recorded here, on the resolver thread,
+        # against the trace context the worker thread captured in place().
+        for p in entries:
+            if p.trace_ctx is not None:
+                trace.record_span(
+                    "coalescer.device",
+                    ticket.launched_at or resolved_at,
+                    resolved_at,
+                    ctx=p.trace_ctx,
+                    metrics=self.metrics,
+                    lanes=len(entries),
+                )
         if self.matrix.version != ticket.matrix_version:
             # The matrix moved while this dispatch was in flight: its
             # placements were scored against a stale snapshot.  Still safe

@@ -16,9 +16,12 @@ journaled there (``state/wal.py``) and a new server restores the snapshot
 and the log tail before it starts; the matrix is rebuilt through the
 store's mutators, and its first sync uploads it in full.  The leader's
 control loop — the SLO observatory, the admission gate and the overload
-controller (``obs/``) — starts and stops with leadership.
+controller (``obs/``) — starts and stops with leadership.  Every span
+of an eval feeds this server's ``nomad.phase.*`` timers (``trace/``).
+ACL tokens resolve to compiled policies (``acl/``) through
+``resolve_token`` and ``check_acl_capability``.
 
-Replication and membership, ACLs and the HTTP API are not part of this
+Replication and membership and the HTTP API are not part of this
 package yet.
 """
 
@@ -97,6 +100,8 @@ class ServerConfig:
     # Core GC cadence (leader.go schedulePeriodic; one shared interval for
     # the eval, job, deployment and node GC evals).
     core_gc_interval: float = 300.0
+    # ACL enforcement (acl/; nomad/server.go:88-91 token resolution).
+    acl_enabled: bool = False
     scheduler_config: SchedulerConfiguration = field(
         default_factory=SchedulerConfiguration
     )
@@ -178,6 +183,13 @@ class Server:
             metrics=self.metrics, device=self.device,
         )
         self.matrix.coalescer = self.coalescer
+
+        # Ambient trace spans (the scheduler stack has no server handle)
+        # feed this server's phase timers; the last server constructed
+        # wins, which only blurs attribution with several in one process.
+        from .. import trace
+
+        trace.set_default_metrics(self.metrics)
         self._register_telemetry_gauges()
 
         # SLO observatory: constructed always (its reports answer on a
@@ -208,15 +220,15 @@ class Server:
         self._unblock_stop = threading.Event()
         self._unblocker: Optional[threading.Thread] = None
         self._reaper: Optional[threading.Thread] = None
+        self._acl_cache: Dict = {}
 
     def _register_telemetry_gauges(self) -> None:
         """The matrix, coalescer and encoder counters as pull gauges of the
         registry, so one snapshot carries the device cost picture.  The
-        reference's gauges on the device breaker (wedged dispatches), on
-        sharding (shard evacuations, shard rows, top-k host bytes) and on
-        counters this package's coalescer does not keep (verify
-        conflicts, feature recompiles, operand bytes) wait for those
-        subjects."""
+        reference's gauges on sharding (shard evacuations, shard rows,
+        top-k host bytes) and on counters this package's coalescer does
+        not keep (verify conflicts, feature recompiles, operand bytes)
+        wait for those subjects."""
         m = self.metrics
         c = self.coalescer
         mx = self.matrix
@@ -234,6 +246,9 @@ class Server:
             ),
         )
         m.gauge_fn("nomad.coalescer.stale_dispatches", lambda: c.stale_dispatches)
+        m.gauge_fn(
+            "nomad.coalescer.wedged_dispatches", lambda: c.wedged_dispatches
+        )
         m.gauge_fn("nomad.matrix.full_uploads", lambda: mx.full_uploads)
         m.gauge_fn("nomad.matrix.scatter_syncs", lambda: mx.scatter_syncs)
         m.gauge_fn(
@@ -351,6 +366,9 @@ class Server:
         # Release the actuators: a demoted leader must not leave the
         # cluster gated/shedding on stale pressure it can no longer see.
         self.overload_controller.reset()
+        # Same for the device breaker: open/half-open is leader-local
+        # health state; the next leader judges the card fresh.
+        self.coalescer.breaker.reset()
 
     def install_snapshot(self, snapshot_wire: dict, seq: int) -> None:
         """Replace all state with another server's image
@@ -377,6 +395,7 @@ class Server:
         self.periodic.stop()
         self.observatory.stop()
         self.overload_controller.reset()
+        self.coalescer.breaker.reset()
         for w in self.workers:
             w.stop()
         self.plan_applier.stop()
@@ -439,6 +458,89 @@ class Server:
         )
         self.apply_eval_updates([ev])
         return ev
+
+    # ------------------------------------------------------------------
+    # ACL (acl/ package; nomad/acl.go ResolveToken + 2Q cache — here a
+    # table-index-validated dict, same effect at this scale)
+    # ------------------------------------------------------------------
+
+    def bootstrap_acl(self):
+        """One-time creation of the initial management token
+        (ACL.Bootstrap, nomad/acl_endpoint.go)."""
+        from ..structs.types import ACLToken
+
+        # Same lock order as the journaled wrapper (_write_lock → _lock);
+        # _lock alone around a journaled write inverts and can deadlock.
+        with self.store._write_lock, self.store._lock:
+            if self.store.has_management_token():
+                raise PermissionError("ACL already bootstrapped")
+            token = ACLToken(
+                name="Bootstrap Token", type="management",
+                create_time=time.time(),
+            )
+            self.store.upsert_acl_tokens(self.next_index(), [token])
+        return token
+
+    def resolve_token(self, secret_id: str):
+        """secret → compiled ACL. Empty secret resolves to the
+        ``anonymous`` policy (deny-all when undefined); an unknown secret
+        to None."""
+        from ..acl import ACL, DENY_ALL_ACL, MANAGEMENT_ACL, parse_policy
+
+        if not self.config.acl_enabled:
+            return MANAGEMENT_ACL
+        cache_key = (
+            secret_id,
+            self.store.table_index("acl_token"),
+            self.store.table_index("acl_policy"),
+        )
+        cached = self._acl_cache.get(cache_key)
+        if cached is not None:
+            return cached
+        if not secret_id:
+            anon = self.store.acl_policies.get("anonymous")
+            acl = ACL([parse_policy(anon.rules)]) if anon else DENY_ALL_ACL
+        else:
+            token = self.store.acl_token_by_secret(secret_id)
+            if token is None:
+                acl = None  # invalid secret: reject outright
+            elif token.is_management():
+                acl = MANAGEMENT_ACL
+            else:
+                policies = [
+                    self.store.acl_policies.get(name)
+                    for name in token.policies
+                ]
+                acl = ACL([
+                    parse_policy(p.rules) for p in policies if p is not None
+                ])
+        if acl is not None:  # never cache invalid-secret misses: a bad
+            # token retried in a loop would flush valid entries
+            if len(self._acl_cache) > 1024:
+                self._acl_cache.clear()
+            self._acl_cache[cache_key] = acl
+        return acl
+
+    def check_acl_capability(
+        self, token: str, kind: str, capability: str,
+        namespace: str = "default",
+    ) -> bool:
+        """Capability check for a caller holding ``token``: ``kind`` is
+        ``namespace`` (a namespace capability such as ``submit-job``),
+        ``node``, ``operator`` or, otherwise, ``agent`` (``read`` or
+        ``write``)."""
+        if not self.config.acl_enabled:
+            return True
+        acl = self.resolve_token(token)
+        if acl is None:
+            return False
+        if kind == "namespace":
+            return acl.allow_namespace(namespace, capability)
+        if kind == "node":
+            return acl.allow_node(capability)
+        if kind == "operator":
+            return acl.allow_operator(capability)
+        return acl.allow_agent(capability)
 
     def plan_job(self, job: Job, diff: bool = False) -> Dict:
         """`job plan` dry run (nomad/job_endpoint.go:1642 Plan +

@@ -254,7 +254,9 @@ def host_to_tensor(field: str, arr: np.ndarray,
     if field == "port_words":
         arr = arr.view(np.int32)
     # From pageable memory a non-blocking copy is staged before the call
-    # returns, so it neither waits for the stream nor outlives ``arr``.
+    # returns, so it never outlives ``arr``; up to a few hundred KiB it
+    # also returns without waiting for the stream (larger ones may wait
+    # for work queued before them: measured on an H100, PERF.md §6).
     return torch.from_numpy(np.ascontiguousarray(arr)).to(
         device, non_blocking=True
     )
@@ -672,7 +674,11 @@ class NodeMatrix:
             self._dirty.clear()
             row_data = {f: self._alloc[f][rows] for f in DeviceArrays._fields}
         try:
-            idx = torch.from_numpy(rows).to(dev)
+            # Non-blocking, so a steady-state sync only enqueues: a
+            # blocking copy would wait for every launch queued before it,
+            # and a stuck stream would stall the dispatch thread outside
+            # the resolver's watchdog.
+            idx = torch.from_numpy(rows).to(dev, non_blocking=True)
             for f in DeviceArrays._fields:
                 getattr(self._device, f).index_copy_(
                     0, idx, host_to_tensor(f, row_data[f], dev)

@@ -1,0 +1,382 @@
+"""Span-based eval-lifecycle tracing + per-thread ring flight recorder.
+
+Every eval's journey — broker enqueue, dequeue-wait, worker scheduler
+compute, coalescer queue-wait, the pipelined card launch/resolve hop,
+plan submit/apply, ack — is stitched into one causally-ordered record, so
+the split between host orchestration, the card's window and queue waits
+is measured, not guessed.  A copy of the reference package's
+``trace/core.py``.
+
+Design constraints, in order:
+
+1. **Always on, bounded.** The flight recorder keeps the last
+   ``NOMAD_TPU_TRACE_RING`` spans *per thread* in a ``deque(maxlen=..)``
+   ring. Memory is bounded by ring-size x thread-count.
+2. **Lock-cheap on the hot path.** The recording thread appends to its
+   own ring (``deque.append`` is atomic under the GIL); the registry
+   lock is taken only when a thread's ring is *created* and at dump
+   time. Span ids come from ``itertools.count`` (also atomic).
+   ``tests/test_torch_trace.py`` holds the per-span cost under a budget.
+3. **Deterministic sampling.** ``NOMAD_TPU_TRACE_SAMPLE`` in [0, 1]
+   decides per *trace* (sha256 of the trace id), so the same eval id
+   samples the same way in every process and a sampled trace is never
+   half-recorded.  Unsampled spans skip the ring but still feed the
+   per-phase latency histograms (``nomad.phase.*``), which the health
+   signals read (``obs/health.py``).
+
+Cross-thread propagation: capture ``current()`` where the context is
+ambient (e.g. ``DeviceCoalescer.place`` on the worker thread), carry the
+``SpanContext`` on the struct that crosses the boundary (``_Pending``,
+``PendingPlan``), and stitch the far side in with
+``record_span(..., ctx=carried)`` — spans may be recorded retroactively
+from whichever thread observed their end.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, List, Optional
+
+from ..retry import env_float, env_int
+
+# Phase histograms land in the MetricsRegistry under this prefix; the
+# health signals read ``nomad.phase.plan.queue_wait`` among them.
+PHASE_PREFIX = "nomad.phase."
+
+_span_ids = itertools.count(1)  # process-wide; next() is atomic in CPython
+
+
+@dataclass(frozen=True)
+class SpanContext:
+    """What crosses a thread/queue boundary: enough to parent a child
+    span on the far side. ``trace_id`` is the eval id for eval-lifecycle
+    spans, so a context is reconstructible anywhere the eval is."""
+
+    trace_id: str
+    span_id: int
+    sampled: bool
+
+    def child(self) -> "SpanContext":
+        return SpanContext(self.trace_id, next(_span_ids), self.sampled)
+
+
+class _Config:
+    """Mutable knob block, loaded from env once at import and adjustable
+    at runtime via :func:`configure`.  The env names are the reference
+    package's (``NOMAD_TPU_TRACE``, ``_SAMPLE``, ``_RING``)."""
+
+    def __init__(self) -> None:
+        self.reload()
+
+    def reload(self) -> None:
+        self.enabled = env_int("NOMAD_TPU_TRACE", 1) != 0
+        self.sample = min(1.0, max(0.0, env_float("NOMAD_TPU_TRACE_SAMPLE", 1.0)))
+        self.ring = max(16, env_int("NOMAD_TPU_TRACE_RING", 4096))
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "enabled": self.enabled,
+            "sample": self.sample,
+            "ring": self.ring,
+        }
+
+
+_cfg = _Config()
+
+
+def configure(
+    enabled: Optional[bool] = None,
+    sample: Optional[float] = None,
+    ring: Optional[int] = None,
+) -> Dict[str, Any]:
+    """Adjust tracing at runtime. Returns the effective config."""
+    if enabled is not None:
+        _cfg.enabled = bool(enabled)
+    if sample is not None:
+        _cfg.sample = min(1.0, max(0.0, float(sample)))
+    if ring is not None:
+        _cfg.ring = max(16, int(ring))
+    return _cfg.as_dict()
+
+
+def config() -> Dict[str, Any]:
+    return _cfg.as_dict()
+
+
+def _trace_sampled(trace_id: str) -> bool:
+    """Deterministic per-trace sampling decision (seeded hash): same
+    trace id → same verdict, across processes."""
+    if _cfg.sample >= 1.0:
+        return True
+    if _cfg.sample <= 0.0:
+        return False
+    h = hashlib.sha256(trace_id.encode()).digest()
+    frac = int.from_bytes(h[:8], "big") / float(1 << 64)
+    return frac < _cfg.sample
+
+
+# ----------------------------------------------------------------------
+# Flight recorder
+
+
+class FlightRecorder:
+    """Per-thread ring buffers of finished span/event records.
+
+    The writing thread owns its ring; the registry dict is locked only
+    on ring creation and when draining for a dump, so recording never
+    contends across threads on the hot path."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._rings: Dict[int, deque] = {}
+        self._thread_names: Dict[int, str] = {}
+        self._tls = threading.local()
+
+    def _ring(self) -> deque:
+        ring = getattr(self._tls, "ring", None)
+        if ring is None or ring.maxlen != _cfg.ring:
+            t = threading.current_thread()
+            ring = deque(getattr(self._tls, "ring", ()) or (), maxlen=_cfg.ring)
+            self._tls.ring = ring
+            with self._lock:
+                self._rings[t.ident or 0] = ring
+                self._thread_names[t.ident or 0] = t.name
+        return ring
+
+    def record(self, rec: Dict[str, Any]) -> None:
+        self._ring().append(rec)
+
+    def records(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Snapshot every thread's ring, globally ordered by start time."""
+        with self._lock:
+            rings = [(tid, list(ring)) for tid, ring in self._rings.items()]
+            names = dict(self._thread_names)
+        out: List[Dict[str, Any]] = []
+        for tid, recs in rings:
+            for r in recs:
+                r = dict(r)
+                r["tid"] = tid
+                r["thread"] = names.get(tid, "?")
+                out.append(r)
+        out.sort(key=lambda r: r["ts"])
+        if limit is not None and limit >= 0:
+            out = out[-limit:] if limit else []
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            for ring in self._rings.values():
+                ring.clear()
+
+    def span_count(self) -> int:
+        with self._lock:
+            return sum(len(r) for r in self._rings.values())
+
+
+_recorder = FlightRecorder()
+
+
+def recorder() -> FlightRecorder:
+    return _recorder
+
+
+# ----------------------------------------------------------------------
+# Metrics hookup (per-phase latency histograms)
+
+_default_metrics = None  # MetricsRegistry | None; set by Server.__init__
+_default_metrics_lock = threading.Lock()
+
+
+def set_default_metrics(registry: Any) -> None:
+    """Point ambient spans (no explicit ``metrics=``) at a registry.
+    ``Server.__init__`` calls this so scheduler-stack spans — which have
+    no server handle — still feed that server's phase histograms."""
+    global _default_metrics
+    with _default_metrics_lock:
+        _default_metrics = registry
+
+
+def _observe_phase(name: str, dur: float, metrics: Any) -> None:
+    reg = metrics if metrics is not None else _default_metrics
+    if reg is not None:
+        try:
+            reg.timer(PHASE_PREFIX + name).observe(dur)
+        except Exception:
+            pass  # telemetry must never take down the eval path
+
+
+# ----------------------------------------------------------------------
+# Thread-local span stack (nesting + ambient context)
+
+_stack_tls = threading.local()
+
+
+def _stack() -> List[SpanContext]:
+    st = getattr(_stack_tls, "stack", None)
+    if st is None:
+        st = []
+        _stack_tls.stack = st
+    return st
+
+
+def current() -> Optional[SpanContext]:
+    """Context of the innermost span active on *this* thread (what you
+    capture before handing work to another thread), or None."""
+    st = _stack()
+    return st[-1] if st else None
+
+
+def start_trace(trace_id: str) -> SpanContext:
+    """Mint a root context for ``trace_id`` (the eval id). Does not push
+    anything on the thread stack — pair with ``span(..., ctx=...)`` or
+    ``record_span``."""
+    return SpanContext(str(trace_id), next(_span_ids), _trace_sampled(str(trace_id)))
+
+
+def record_span(
+    name: str,
+    t0: float,
+    t1: float,
+    ctx: Optional[SpanContext] = None,
+    parent: Optional[int] = None,
+    metrics: Any = None,
+    **args: Any,
+) -> None:
+    """Retroactively record a finished span — the cross-thread stitch.
+    ``ctx`` is the carried context; the recorded span is its *child*
+    unless ``parent`` overrides. With no ctx the span is ambient
+    (unparented, fresh trace id from the name)."""
+    if not _cfg.enabled:
+        return
+    if t1 < t0:
+        t1 = t0
+    _observe_phase(name, t1 - t0, metrics)
+    if ctx is None:
+        ctx = start_trace("%s#%d" % (name, next(_span_ids)))
+        parent_id = 0
+    else:
+        parent_id = parent if parent is not None else ctx.span_id
+    if not ctx.sampled:
+        return
+    _recorder.record(
+        {
+            "name": name,
+            "ph": "X",
+            "ts": t0,
+            "dur": t1 - t0,
+            "trace": ctx.trace_id,
+            "span": next(_span_ids),
+            "parent": parent_id,
+            "args": args or {},
+        }
+    )
+
+
+def event(
+    name: str,
+    ctx: Optional[SpanContext] = None,
+    **args: Any,
+) -> None:
+    """Instantaneous marker (seams, acks, stale-dispatch hits)."""
+    if not _cfg.enabled:
+        return
+    if ctx is None:
+        ctx = current()
+    if ctx is not None and not ctx.sampled:
+        return
+    _recorder.record(
+        {
+            "name": name,
+            "ph": "i",
+            "ts": time.time(),
+            "dur": 0.0,
+            "trace": ctx.trace_id if ctx else "",
+            "span": next(_span_ids),
+            "parent": ctx.span_id if ctx else 0,
+            "args": args or {},
+        }
+    )
+
+
+@contextmanager
+def span(
+    name: str,
+    ctx: Optional[SpanContext] = None,
+    trace_id: Optional[str] = None,
+    metrics: Any = None,
+    **args: Any,
+) -> Iterator[Optional[SpanContext]]:
+    """Timed span, pushed on this thread's stack for automatic nesting.
+
+    Parentage: explicit ``ctx`` (a carried context — this span becomes
+    its child) > enclosing span on this thread > root. ``trace_id``
+    starts a fresh root trace (the worker's ``eval.process`` entry
+    point). Yields the span's own context for hand-off to other threads.
+    """
+    if not _cfg.enabled:
+        yield None
+        return
+    st = _stack()
+    if trace_id is not None:
+        parent_id = 0
+        my = start_trace(trace_id)
+    elif ctx is not None:
+        parent_id = ctx.span_id
+        my = ctx.child()
+    elif st:
+        parent_id = st[-1].span_id
+        my = st[-1].child()
+    else:
+        parent_id = 0
+        my = start_trace("%s#%d" % (name, next(_span_ids)))
+    st.append(my)
+    t0 = time.time()
+    try:
+        yield my
+    finally:
+        t1 = time.time()
+        # Pop *our* frame even if a nested span leaked (defensive).
+        while st and st[-1] is not my:
+            st.pop()
+        if st:
+            st.pop()
+        _observe_phase(name, t1 - t0, metrics)
+        if my.sampled:
+            _recorder.record(
+                {
+                    "name": name,
+                    "ph": "X",
+                    "ts": t0,
+                    "dur": t1 - t0,
+                    "trace": my.trace_id,
+                    "span": my.span_id,
+                    "parent": parent_id,
+                    "args": args or {},
+                }
+            )
+
+
+# ----------------------------------------------------------------------
+# Introspection helpers used by the exporters and the breach dump
+
+
+def dump(limit: Optional[int] = None) -> List[Dict[str, Any]]:
+    return _recorder.records(limit=limit)
+
+
+def clear() -> None:
+    _recorder.clear()
+
+
+def traces_by_id(records: Optional[List[Dict[str, Any]]] = None) -> Dict[str, List[Dict[str, Any]]]:
+    """Group records by trace id (drops ambient '' traces of events)."""
+    grouped: Dict[str, List[Dict[str, Any]]] = {}
+    for r in records if records is not None else dump():
+        grouped.setdefault(r.get("trace", ""), []).append(r)
+    return grouped
