@@ -222,6 +222,47 @@ Phases:
    server shut down within 60 s; a failed check still kills every
    sidecar and task process of the phase.  Nothing in this phase plays
    the client.
+12. front door — the HTTP API, the CLI and agents in their own processes.
+   12a: ``python -m nomad_tpu_torch.cli agent --server-only --device cuda
+   --port 0 --config <file>`` in a subprocess (fork and exec) of a
+   temporary directory, its address read from its start line; 64 nodes
+   registered over the wire; ``job run`` and ``job status`` of a small
+   HCL service job through the CLI in subprocesses: the eval complete,
+   its 2 allocs placed, ``/v1/metrics`` counting coalescer dispatches,
+   the agent holding a CUDA context (``nvidia-smi --query-compute-apps``,
+   or its open ``/dev/nvidia<N>`` where the tool lists another pid
+   namespace); SIGINT stops it with exit code 0 within 30 s.  12b: an
+   in-process server agent built from the config file ``cmd_agent``
+   reads (``load_config_files``/``apply_config``, 32 workers, capacity
+   10240, heartbeat TTLs 3600/7200 s, ACLs on; blocked retries every 2 s
+   set in-process) with ``Agent(cfg, device="cuda")``; ``acl bootstrap``
+   through the CLI; the server phases' 10,000 nodes registered over the
+   wire (``HTTPServerRPC.register_node``, 8 threads); 4 client-only
+   agents, each its own ``python -m nomad_tpu_torch.cli agent
+   --client-only`` process (dc1, class ``agent``, the management token,
+   a data directory each, the Python sidecar): 10,004 rows, each agent
+   advertising its address.  With the counts zeroed, the server phase's
+   64 count-2 jobs in HCL through ``POST /v1/jobs`` from 8 threads
+   (anonymous: 403): every eval complete over HTTP, 128 fitting allocs,
+   read back over ``GET /v1/allocations``.  An
+   ``/v1/event/stream?topic=Allocation:*`` reader opens; through ``job
+   run`` on the CLI, constrained to the agents: 4 raw_exec allocs whose
+   ``alloc logs`` and ``alloc fs`` through the server agent (forwarded to
+   the node agent) return each alloc's own index, and ``alloc exec``
+   with stdin its stdout and exit code; a system job on exactly the 4
+   agents; a sticky, migrating disk whose alloc ``node drain`` moves to
+   another agent process with the file's bytes.  ``fused_place``,
+   ``allocs_fit_verify`` and ``system_feasible`` must have launched,
+   no plain version and no ``place_batch``; the stream saw every alloc of
+   the agents' jobs; ``/v1/health``, ``/v1/slo`` and ``/v1/overload``
+   answer with the reference's keys, ``/v1/metrics?format=prometheus``
+   carries the coalescer and kernel gauges, ``top --count 1`` renders,
+   ``/v1/internal/raft/stats`` answers 501, and no client-only agent
+   holds a CUDA context.  Last the jobs stop (no task process left) and
+   every agent stops (SIGINT, exit code 0).  Logs the registration
+   seconds, the HTTP burst's evals/s beside the in-process server
+   phase's, submit -> running of the agents' jobs, the migration and
+   drain seconds.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -4566,6 +4607,729 @@ def phase_agents(card: str, results: dict) -> None:
             os.environ["NOMAD_TPU_EXECUTOR_BIN"] = exec_bin
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the front door (HTTP API, CLI, client-only agents)
+# ---------------------------------------------------------------------------
+
+FRONT_AGENTS = 4
+FRONT_THREADS = 8  # registration and submission threads
+FRONT_ECHO_COUNT = 4
+FRONT_CLI_NODES = 64  # nodes of the CLI agent of part 12a
+FRONT_SLEEP = "6121"  # every task of the phase sleeps this long (phase_tasks)
+FRONT_WAIT_S = 120.0  # any one condition of the phase
+FRONT_STOP_S = 30.0  # an agent process stopping on SIGINT, at most
+FRONT_DEVICE = "cuda"  # the server agents' device
+FRONT_SERVER_HCL = """
+server {{
+  workers           = {workers}
+  node_capacity     = {capacity}
+  heartbeat_min_ttl = 3600
+  heartbeat_max_ttl = 7200
+  acl_enabled       = {acl}
+}}
+client {{
+  enabled = false
+}}
+"""
+FRONT_AGENT_HCL = """
+data_dir   = "{data_dir}"
+datacenter = "dc1"
+client {{
+  enabled    = true
+  node_class = "{node_class}"
+  token      = "{token}"
+  meta {{ agent = "{i}" }}
+}}
+"""
+FRONT_CLI_JOB = """
+job "front-cli" {
+  datacenters = ["dc1", "dc2", "dc3", "dc4"]
+  group "web" {
+    count = 2
+    task "web" {
+      driver = "mock"
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+# The agents' jobs: constrained to the agents' class, raw_exec tasks that
+# end in `sleep FRONT_SLEEP`; drains move them within a second.
+FRONT_AGENT_JOB = """
+job "{id}" {{
+  type        = "{type}"
+  datacenters = ["dc1"]
+  constraint {{
+    attribute = "${{node.class}}"
+    value     = "agent"
+  }}
+  group "g" {{
+    count = {count}
+    ephemeral_disk {{
+      size    = 10
+      sticky  = {sticky}
+      migrate = {sticky}
+    }}
+    migrate {{
+      max_parallel     = 4
+      min_healthy_time = "0.5s"
+    }}
+    task "main" {{
+      driver = "raw_exec"
+      env {{ GREETING = "front" }}
+      config {{
+        command = "/bin/sh"
+        args    = ["-c", "{script}; sleep {sleep}"]
+      }}
+      resources {{
+        cpu    = 20
+        memory = 32
+      }}
+    }}
+  }}
+}}
+"""
+FRONT_ECHO_SCRIPT = ("echo idx-$NOMAD_ALLOC_INDEX; "
+                     "echo idx-$NOMAD_ALLOC_INDEX > local/idx.txt")
+FRONT_STICKY_SCRIPT = ("test -f local/state.txt || "
+                       "echo payload-$NOMAD_ALLOC_ID > local/state.txt")
+
+
+def front_job_hcl(job_id: str, job_type: str, count: int, script: str,
+                  sticky: bool = False) -> str:
+    return FRONT_AGENT_JOB.format(id=job_id, type=job_type, count=count,
+                                  sticky="true" if sticky else "false",
+                                  script=script, sleep=FRONT_SLEEP)
+
+
+def smoke_env(**extra) -> dict:
+    """The environment of the processes the phase starts: the checkout on
+    their ``PYTHONPATH``."""
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH", "")) if p)
+    env.update(extra)
+    return env
+
+
+def run_cli(cwd: str, *args, stdin: str = "",
+            timeout: float = 60.0) -> subprocess.CompletedProcess:
+    """``python -m nomad_tpu_torch.cli`` with ``args``, in a subprocess."""
+    return subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch.cli", *args],
+        input=stdin, capture_output=True, text=True, timeout=timeout,
+        cwd=cwd, env=smoke_env())
+
+
+def cli_ok(cwd: str, *args, stdin: str = "", rc: int = 0) -> str:
+    out = run_cli(cwd, *args, stdin=stdin)
+    if out.returncode != rc:
+        raise AssertionError(f"front door: `{' '.join(args[2:])}` exited "
+                             f"{out.returncode}: {out.stdout}{out.stderr}")
+    return out.stdout
+
+
+def spawn_cli_agent(tmp: str, name: str, args, env: dict):
+    """``nomad-tpu agent`` in its own process (fork and exec), its output
+    in files under ``tmp``."""
+    with open(Path(tmp) / f"{name}.out", "w") as out, open(
+            Path(tmp) / f"{name}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-u", "-m", "nomad_tpu_torch.cli", "agent",
+             *args], stdout=out, stderr=err, cwd=tmp, env=env)
+
+
+def cli_agent_addr(tmp: str, name: str, proc) -> str:
+    """The address from a spawned agent's start line."""
+    out_path = Path(tmp) / f"{name}.out"
+    deadline = time.perf_counter() + FRONT_WAIT_S
+    while time.perf_counter() < deadline:
+        for line in out_path.read_text().splitlines():
+            if line.startswith("agent started; HTTP API at "):
+                return line.rsplit(" ", 1)[1].strip()
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    proc.kill()
+    proc.wait(timeout=10)
+    raise AssertionError(f"front door: agent {name} did not start: "
+                         f"{(Path(tmp) / f'{name}.err').read_text()[-2000:]}")
+
+
+def stop_cli_agent(proc, name: str, signalled: bool = False) -> float:
+    """SIGINT (unless ``signalled`` already), the agent's clean stop; it
+    must exit 0 within FRONT_STOP_S.  Returns seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    if not signalled:
+        proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=FRONT_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+        raise AssertionError(f"front door: agent {name} still running "
+                             f"{FRONT_STOP_S:.0f} s after SIGINT")
+    if rc != 0:
+        raise AssertionError(f"front door: agent {name} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def cuda_holders(pids) -> dict:
+    """Which of ``pids`` hold a CUDA context: the pids ``nvidia-smi
+    --query-compute-apps`` lists, where it lists this process (which holds
+    one); else, where the tool sees another pid namespace, the processes
+    with a device node (``/dev/nvidia<N>``) open.  Returns {pid: bool} and
+    the method under the key "method" and nvidia-smi's pids under
+    "listed"."""
+    import re
+
+    import torch
+
+    torch.zeros(1, device="cuda")  # this process's context exists
+    listed = run_nvidia_smi_pids()
+    out: dict = {"listed": sorted(listed)}
+    if os.getpid() in listed:
+        out["method"] = "nvidia-smi --query-compute-apps"
+        for pid in pids:
+            out[pid] = pid in listed
+        return out
+    out["method"] = "open /dev/nvidia<N> (nvidia-smi lists other pids)"
+    node = re.compile(r"^/dev/nvidia\d+$")
+    for pid in list(pids) + [os.getpid()]:
+        held = False
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                try:
+                    if node.match(os.readlink(f"/proc/{pid}/fd/{fd}")):
+                        held = True
+                        break
+                except OSError:
+                    continue
+        except OSError:
+            pass
+        out[pid] = held
+    if not out[os.getpid()]:
+        raise AssertionError("front door: neither nvidia-smi nor /proc shows "
+                             "this process's CUDA context")
+    return out
+
+
+def run_nvidia_smi_pids() -> set:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return set()
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def phase_tasks(tmp: str) -> list:
+    """Pids of the phase's task processes still alive: a ``sleep
+    FRONT_SLEEP``, or the shell of a task script that ends in it, whose
+    working directory (the task's directory) lies under ``tmp``."""
+    root = os.path.realpath(tmp)
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                args = fh.read().decode(errors="replace").split("\0")
+            cwd = os.path.realpath(os.readlink(f"/proc/{entry}/cwd"))
+        except OSError:
+            continue
+        if args and args[-1] == "":
+            args.pop()
+        task = (len(args) == 2 and os.path.basename(args[0]) == "sleep"
+                and args[1] == FRONT_SLEEP) or (
+                    len(args) == 3 and args[1] == "-c"
+                    and args[2].endswith(f"; sleep {FRONT_SLEEP}"))
+        if task and (cwd == root or cwd.startswith(root + os.sep)) and (
+                not dead_or_zombie(int(entry))):
+            found.append(int(entry))
+    return found
+
+
+def http_json(addr: str, method: str, path: str, body=None, token: str = ""):
+    """One request; returns (status, decoded body), errors included."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["X-Nomad-Token"] = token
+    req = urllib.request.Request(addr + path, data=data, method=method,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            raw = resp.read()
+            code = resp.status
+    except urllib.error.HTTPError as exc:
+        raw, code = exc.read(), exc.code
+    try:
+        return code, json.loads(raw) if raw else None
+    except ValueError:
+        return code, raw
+
+
+def last_eval_of(table: dict, eval_id: str) -> dict:
+    """``last_eval`` over the JSON of ``GET /v1/evaluations`` (id -> eval):
+    the eval an eval ends in after placement conflicts hand its job to a
+    blocked retry."""
+    ev = table[eval_id]
+    while ev["status"] == "failed" and ev.get("blocked_eval") in table:
+        ev = table[ev["blocked_eval"]]
+    return ev
+
+
+def front_cli(card: str, tmp: str, out: dict) -> None:
+    """12a: ``nomad-tpu agent --device cuda`` in a subprocess, fed and
+    driven through the CLI."""
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.api.rpc import HTTPServerRPC
+
+    conf = Path(tmp) / "cli-server.hcl"
+    conf.write_text(FRONT_SERVER_HCL.format(workers=4, capacity=256,
+                                            acl="false"))
+    job = Path(tmp) / "front-cli.hcl"
+    job.write_text(FRONT_CLI_JOB)
+    t0 = time.perf_counter()
+    proc = spawn_cli_agent(tmp, "cli-agent", [
+        "--server-only", "--device", FRONT_DEVICE, "--port", "0", "--config",
+        str(conf)], smoke_env())
+    try:
+        addr = cli_agent_addr(tmp, "cli-agent", proc)
+        out["cli_agent_start_s"] = time.perf_counter() - t0
+        rpc = HTTPServerRPC(addr)
+        for i in range(FRONT_CLI_NODES):
+            rpc.register_node(server_node(i))
+        t0 = time.perf_counter()
+        text = cli_ok(tmp, "--address", addr, "job", "run", str(job))
+        out["cli_job_run_s"] = time.perf_counter() - t0
+        if "Evaluation" not in text or "complete" not in text:
+            raise AssertionError(f"front door: job run said {text!r}")
+        status = cli_ok(tmp, "--address", addr, "job", "status", "front-cli")
+        api = APIClient(addr)
+        allocs = [a for a in api.job_allocations("front-cli")
+                  if a["desired_status"] == "run"]
+        if len(allocs) != 2 or "front-cli" not in status:
+            raise AssertionError(f"front door: the CLI agent placed "
+                                 f"{len(allocs)} allocs; status {status!r}")
+        dispatches = api.metrics().get("nomad.coalescer.dispatches", 0)
+        if not dispatches:
+            raise AssertionError("front door: the CLI agent's coalescer "
+                                 "dispatched nothing")
+        holders = cuda_holders([proc.pid])
+        if not holders[proc.pid]:
+            raise AssertionError(f"front door: the CLI agent (pid {proc.pid}) "
+                                 f"holds no CUDA context ({holders['method']})")
+        out["cli_stop_s"] = stop_cli_agent(proc, "cli-agent")
+        log(f"front door: `nomad-tpu agent --device cuda` (pid {proc.pid}) up "
+            f"in {out['cli_agent_start_s']:.3f} s, {FRONT_CLI_NODES} nodes "
+            f"over the wire; `job run` {out['cli_job_run_s']:.3f} s, eval "
+            f"complete, 2 allocs placed in {dispatches} dispatches; it holds "
+            f"a CUDA context ({holders['method']}); SIGINT stopped it, rc 0, "
+            f"in {out['cli_stop_s']:.3f} s (card: {card})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def phase_front_door(card: str, results: dict) -> None:
+    """The HTTP API, the CLI and client-only agents in their own processes
+    in front of the card's kernels (module docstring, phase 12)."""
+    import gc
+    import signal
+    import threading
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from nomad_tpu_torch.api import Agent, AgentConfig, APIClient
+    from nomad_tpu_torch.api.client import APIError
+    from nomad_tpu_torch.api.config_file import apply_config, load_config_files
+    from nomad_tpu_torch.api.rpc import HTTPServerRPC
+    from nomad_tpu_torch.jobspec import job_to_api
+    from nomad_tpu_torch.ops import kernels as k
+
+    out = results.setdefault("front_door", {})
+    tmp = tempfile.mkdtemp(prefix="nomad-front-")
+    t_phase = time.perf_counter()
+    agent = None
+    procs: dict = {}  # name -> client-only agent process
+    reader = None
+    try:
+        front_cli(card, tmp, out)
+
+        # 12b. The server agent from the config file cmd_agent reads.
+        conf = Path(tmp) / "server.hcl"
+        conf.write_text(FRONT_SERVER_HCL.format(
+            workers=SERVER_WORKERS, capacity=CAPACITY, acl="true"))
+        cfg = AgentConfig()
+        apply_config(load_config_files([str(conf)]), cfg)
+        cfg.server_config.coalescer_lanes = LANES
+        cfg.server_config.failed_eval_unblock_interval = RETRY_INTERVAL_S
+        if (cfg.server_config.num_workers != SERVER_WORKERS
+                or cfg.server_config.node_capacity != CAPACITY
+                or not cfg.server_config.acl_enabled or cfg.client_enabled):
+            raise AssertionError(f"front door: config file read as {cfg}")
+        agent = Agent(cfg, device=FRONT_DEVICE)
+        agent.start()
+        srv, addr = agent.server, agent.rpc_addr
+        boot = cli_ok(tmp, "--address", addr, "acl", "bootstrap")
+        mgmt = next(line.split("=", 1)[1].strip()
+                    for line in boot.splitlines()
+                    if line.startswith("Secret ID"))
+        api = APIClient(addr, token=mgmt)
+
+        # The server phases' nodes, over the wire.
+        rpc = HTTPServerRPC(addr, token=mgmt)
+        names = Counter(t.name.rstrip("0123456789").rstrip("-_ ")
+                        for t in threading.enumerate())
+        log(f"front door: {threading.active_count()} threads in this "
+            f"process before the registrations {dict(names.most_common(8))}, "
+            f"{len(gc.get_objects())} objects tracked by the collector")
+        tenth = max(1, N_NODES // 10)
+        marks = []
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FRONT_THREADS) as pool:
+            for lo in range(0, N_NODES, tenth):
+                list(pool.map(lambda i: rpc.register_node(server_node(i)),
+                              range(lo, min(lo + tenth, N_NODES))))
+                marks.append(time.perf_counter() - t0)
+        out["register_s"] = time.perf_counter() - t0
+        out["register_tenths_s"] = [b - a for a, b in zip([0.0] + marks,
+                                                          marks)]
+        if len(srv.store.nodes) != N_NODES:
+            raise AssertionError(f"front door: {len(srv.store.nodes)} nodes")
+        log(f"front door: {N_NODES} nodes registered over the wire "
+            f"(HTTPServerRPC.register_node, {FRONT_THREADS} threads) in "
+            f"{out['register_s']:.3f} s, by tenths "
+            f"{[round(x, 3) for x in out['register_tenths_s']]} "
+            f"(card: {card})")
+
+        # Client-only agents, each in its own process, started together.
+        t0 = time.perf_counter()
+        agent_env = smoke_env(NOMAD_TPU_EXECUTOR_BIN="")
+        for i in range(FRONT_AGENTS):
+            hcl = Path(tmp) / f"agent-{i}.hcl"
+            hcl.write_text(FRONT_AGENT_HCL.format(
+                data_dir=Path(tmp) / f"agent-{i}", node_class=AGENT_CLASS,
+                token=mgmt, i=i))
+            procs[f"agent-{i}"] = spawn_cli_agent(tmp, f"agent-{i}", [
+                "--client-only", "--servers", addr, "--port", "0",
+                "--config", str(hcl)], agent_env)
+        addrs = {name: cli_agent_addr(tmp, name, proc)
+                 for name, proc in procs.items()}
+
+        def agent_nodes():
+            return {n.id for n in list(srv.store.nodes.values())
+                    if n.node_class == AGENT_CLASS and n.status == "ready"}
+
+        wait_for(lambda: len(agent_nodes()) == FRONT_AGENTS,
+                 "the client-only agents ready", timeout_s=FRONT_WAIT_S)
+        out["agents_start_s"] = time.perf_counter() - t0
+        nodes = agent_nodes()
+        advertised = sorted(srv.store.node_by_id(n).attributes.get(
+            "nomad.advertise.address") for n in nodes)
+        if advertised != sorted(addrs.values()) or (
+                len(srv.store.nodes) != N_NODES + FRONT_AGENTS):
+            raise AssertionError(f"front door: agents advertise {advertised}, "
+                                 f"{len(srv.store.nodes)} nodes")
+        log(f"front door: {FRONT_AGENTS} client-only agents (python -m "
+            f"nomad_tpu_torch.cli agent --client-only, NOMAD_TPU_EXECUTOR_BIN "
+            f"empty) ready in {out['agents_start_s']:.3f} s: "
+            f"{len(srv.store.nodes)} rows (card: {card})")
+
+        # The burst: 64 HCL jobs through POST /v1/jobs from 8 threads.
+        anon = APIClient(addr)
+        try:
+            anon.register_job(job_to_api(hcl_service_job(0, "front-anon")))
+        except APIError as exc:
+            if exc.code != 403:
+                raise
+        else:
+            raise AssertionError("front door: an anonymous submit succeeded")
+        jobs = [hcl_service_job(i, "front-svc") for i in range(SERVER_JOBS)]
+        payloads = [job_to_api(j) for j in jobs]
+        k.reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FRONT_THREADS) as pool:
+            evals = list(pool.map(lambda p: api.register_job(p)["EvalID"],
+                                  payloads))
+        out["submit_s"] = time.perf_counter() - t0
+        pending = set(evals)
+        while pending:
+            if time.perf_counter() - t0 > FRONT_WAIT_S:
+                raise AssertionError(f"front door: {len(pending)} burst evals "
+                                     "still open")
+            # One GET /v1/evaluations a poll, as an operator's tooling
+            # would; an eval's blocked retry is followed.
+            table = {e["id"]: e for e in api.list_evaluations()}
+            pending = {e for e in pending
+                       if last_eval_of(table, e)["status"] != "complete"}
+            if pending:
+                time.sleep(0.005)
+        out["burst_s"] = time.perf_counter() - t0
+        out["evals_per_s"] = SERVER_JOBS / out["burst_s"]
+        burst = check_burst(srv, [SimpleNamespace(id=e) for e in evals],
+                            "front door")
+        known = set(srv.store.nodes)
+        over_http = [a for a in http_json(addr, "GET", "/v1/allocations",
+                                          token=mgmt)[1]
+                     if a["job_id"].startswith("front-svc")
+                     and a["desired_status"] == "run"]
+        if len(over_http) != SERVER_JOBS * SERVER_COUNT or not all(
+                a["node_id"] in known for a in over_http):
+            raise AssertionError(f"front door: {len(over_http)} burst allocs "
+                                 "read back over HTTP")
+        in_process = results.get("server", {}).get("evals_per_s")
+        log(f"front door: {SERVER_JOBS} HCL jobs x {SERVER_COUNT} through "
+            f"POST /v1/jobs ({FRONT_THREADS} threads): every POST answered "
+            f"in {out['submit_s']:.3f} s, every eval complete "
+            f"over HTTP in {out['burst_s']:.3f} s, {out['evals_per_s']:.1f} "
+            f"evals/s (the in-process server phase: "
+            f"{'not run' if in_process is None else f'{in_process:.1f}'} "
+            f"evals/s this run); {burst['allocs']} fitting allocs, "
+            f"{burst['retried']} retried; an anonymous submit got 403 "
+            f"(card: {card})")
+        for j in jobs:
+            api.deregister_job(j.id)
+
+        # The event stream, open before the agents' jobs.
+        events: list = []
+        subscribed = threading.Event()
+
+        def read_events():
+            import urllib.request
+
+            req = urllib.request.Request(
+                f"{addr}/v1/event/stream?topic=Allocation:*",
+                headers={"X-Nomad-Token": mgmt})
+            with urllib.request.urlopen(req, timeout=FRONT_WAIT_S) as resp:
+                subscribed.set()
+                for line in resp:
+                    ev = json.loads(line)
+                    if ev:
+                        events.append(ev)
+
+        subs0 = srv.store.events.subscriber_count()
+        reader = threading.Thread(target=read_events, daemon=True)
+        reader.start()
+        wait_for(lambda: srv.store.events.subscriber_count() > subs0,
+                 "the event stream subscribed", timeout_s=FRONT_WAIT_S)
+
+        def running(job_id, n):
+            allocs = [a for a in api.job_allocations(job_id)
+                      if a["desired_status"] == "run"]
+            ok = len(allocs) == n and all(a["client_status"] == "running"
+                                          for a in allocs)
+            return allocs if ok else None
+
+        def job_file(name, *args, **kw):
+            path = Path(tmp) / f"{name}.hcl"
+            path.write_text(front_job_hcl(name, *args, **kw))
+            return str(path)
+
+        cli_head = ("--address", addr, "--token", mgmt)
+        # raw_exec: each alloc echoes its index; logs, fs and exec through
+        # the server agent, which forwards to the node agent.
+        t0 = time.perf_counter()
+        text = cli_ok(tmp, *cli_head, "job", "run", job_file(
+            "front-echo", "service", FRONT_ECHO_COUNT, FRONT_ECHO_SCRIPT))
+        if "complete" not in text:
+            raise AssertionError(f"front door: job run said {text!r}")
+        wait_for(lambda: running("front-echo", FRONT_ECHO_COUNT),
+                 "the echo job running", timeout_s=FRONT_WAIT_S)
+        out["echo_running_s"] = time.perf_counter() - t0
+        echo = running("front-echo", FRONT_ECHO_COUNT)
+        for a in echo:
+            idx = a["name"].rsplit("[", 1)[1][:-1]
+            want = f"idx-{idx}\n"
+
+            def logged():
+                got = run_cli(tmp, *cli_head, "alloc", "logs", a["id"],
+                              "main")
+                return got.returncode == 0 and got.stdout == want
+
+            wait_for(logged, f"alloc {idx}'s log", timeout_s=FRONT_WAIT_S)
+            cat = cli_ok(tmp, *cli_head, "alloc", "fs", a["id"],
+                         "main/local/idx.txt")
+            if cat != want:
+                raise AssertionError(f"front door: alloc fs of {idx}: {cat!r}")
+        exec_out = run_cli(tmp, *cli_head, "alloc", "exec", "--task", "main",
+                           echo[0]["id"], "--", "/bin/sh", "-c",
+                           "cat; echo $GREETING; exit 7", stdin="via-stdin\n")
+        if (exec_out.returncode, exec_out.stdout) != (7, "via-stdin\nfront\n"):
+            raise AssertionError(f"front door: alloc exec gave rc "
+                                 f"{exec_out.returncode}, {exec_out.stdout!r}"
+                                 f" {exec_out.stderr[-500:]!r}")
+        log(f"front door: `job run` of {FRONT_ECHO_COUNT} raw_exec allocs on "
+            f"the agents: submit -> running {out['echo_running_s']:.3f} s; "
+            f"`alloc logs` and `alloc fs` through the server agent return "
+            f"each alloc's own index; `alloc exec` returned its stdin and "
+            f"exit code 7 (card: {card})")
+
+        # A system job on exactly the agents.
+        t0 = time.perf_counter()
+        cli_ok(tmp, *cli_head, "job", "run", job_file(
+            "front-system", "system", 1, "true"))
+        wait_for(lambda: running("front-system", FRONT_AGENTS),
+                 "the system job running on every agent",
+                 timeout_s=FRONT_WAIT_S)
+        out["system_running_s"] = time.perf_counter() - t0
+        on = {a["node_id"] for a in running("front-system", FRONT_AGENTS)}
+        if on != nodes:
+            raise AssertionError("front door: the system job runs on "
+                                 f"{sorted(on)}, not the agents")
+
+        # A sticky, migrating disk follows its alloc off a drained agent.
+        t0 = time.perf_counter()
+        cli_ok(tmp, *cli_head, "job", "run", job_file(
+            "front-sticky", "service", 1, FRONT_STICKY_SCRIPT, sticky=True))
+        wait_for(lambda: running("front-sticky", 1),
+                 "the sticky job running", timeout_s=FRONT_WAIT_S)
+        first = running("front-sticky", 1)[0]
+        out["sticky_running_s"] = time.perf_counter() - t0
+        state_path = "main/local/state.txt"
+
+        def state_of(alloc_id):
+            got = run_cli(tmp, *cli_head, "alloc", "fs", alloc_id, state_path)
+            return got.stdout if got.returncode == 0 else None
+
+        wait_for(lambda: state_of(first["id"]), "the sticky state file",
+                 timeout_s=FRONT_WAIT_S)
+        content = state_of(first["id"])
+        if content != f"payload-{first['id']}\n":
+            raise AssertionError(f"front door: state file {content!r}")
+        t0 = time.perf_counter()
+        cli_ok(tmp, *cli_head, "node", "drain", first["node_id"])
+
+        def moved():
+            allocs = running("front-sticky", 1)
+            return allocs if allocs and allocs[0]["node_id"] != first[
+                "node_id"] else None
+
+        wait_for(moved, "the sticky alloc moved", timeout_s=FRONT_WAIT_S)
+        second = moved()[0]
+        out["migration_s"] = time.perf_counter() - t0
+        if state_of(second["id"]) != content or (
+                second.get("previous_allocation") != first["id"]):
+            raise AssertionError("front door: the migrated disk lost its file")
+        wait_for(lambda: not api.get_node(first["node_id"])["drain"],
+                 "the drain complete", timeout_s=FRONT_WAIT_S)
+        out["drain_s"] = time.perf_counter() - t0
+        log(f"front door: system job on exactly the {FRONT_AGENTS} agents in "
+            f"{out['system_running_s']:.3f} s; sticky disk: running in "
+            f"{out['sticky_running_s']:.3f} s, `node drain` -> replacement "
+            f"running on another agent process with the file's bytes in "
+            f"{out['migration_s']:.3f} s, drain complete in "
+            f"{out['drain_s']:.3f} s (card: {card})")
+
+        # The kernels of the path, and no plain version.
+        launches = path_launches(k)
+        check_path_launches(launches, "front door")
+        out["launches"] = launches
+
+        # Streams and surfaces.
+        agent_allocs = {a["id"] for j in ("front-echo", "front-system",
+                                          "front-sticky")
+                        for a in api.job_allocations(j)}
+        wait_for(lambda: agent_allocs <= {e["Key"] for e in list(events)},
+                 "an event for every alloc of the agents' jobs",
+                 timeout_s=FRONT_WAIT_S)
+        keys = {
+            "/v1/health": {"status", "score", "pressure", "inputs",
+                           "breached_slos", "evaluated_at", "device"},
+            "/v1/overload": {"state", "pressure", "thresholds", "hysteresis",
+                             "flips", "actuators", "decisions"},
+            "/v1/slo": {"slos"},
+        }
+        for path, want in keys.items():
+            code, body = http_json(addr, "GET", path, token=mgmt)
+            if code != 200 or not want <= set(body):
+                raise AssertionError(f"front door: {path} gave {code} "
+                                     f"{sorted(body) if code == 200 else body}")
+        prom = api.metrics_prometheus()
+        for name in ("nomad_coalescer_dispatches", "nomad_kernel_launches",
+                     "nomad_kernel_fused_lanes"):
+            if name not in prom:
+                raise AssertionError(f"front door: {name} not in /v1/metrics"
+                                     "?format=prometheus")
+        top = cli_ok(tmp, *cli_head, "top", "--count", "1", "--no-clear")
+        if not top.startswith("nomad top"):
+            raise AssertionError(f"front door: top rendered {top[:200]!r}")
+        code, body = http_json(addr, "GET", "/v1/internal/raft/stats",
+                               token=mgmt)
+        if code != 501:
+            raise AssertionError(f"front door: raft stats gave {code}")
+        holders = cuda_holders([p.pid for p in procs.values()])
+        if any(holders[p.pid] for p in procs.values()):
+            raise AssertionError(f"front door: a client-only agent holds a "
+                                 f"CUDA context: {holders}")
+        log(f"front door: {len(events)} Allocation events streamed, one for "
+            f"each of the agents' {len(agent_allocs)} allocs; /v1/health, "
+            f"/v1/slo, /v1/overload answer with the reference's keys; "
+            f"prometheus carries the coalescer and kernel gauges; `top` "
+            f"rendered; /v1/internal/raft/stats 501; launches {launches}; no "
+            f"client-only agent holds a CUDA context ({holders['method']}) "
+            f"(card: {card})")
+
+        # Teardown: the jobs, then every agent.
+        t0 = time.perf_counter()
+        for j in ("front-echo", "front-system", "front-sticky"):
+            api.deregister_job(j)
+        wait_for(lambda: all(a["client_status"] in ("complete", "failed",
+                                                    "lost")
+                             for j in ("front-echo", "front-system",
+                                       "front-sticky")
+                             for a in api.job_allocations(j)),
+                 "every alloc of the agents' jobs stopped",
+                 timeout_s=FRONT_WAIT_S)
+        wait_for(lambda: not phase_tasks(tmp), "every task process gone",
+                 timeout_s=FRONT_STOP_S)
+        out["stop_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for proc in procs.values():
+            proc.send_signal(signal.SIGINT)  # all at once; each must exit 0
+        for name, proc in list(procs.items()):
+            stop_cli_agent(proc, name, signalled=True)
+        agent.shutdown()
+        agent = None
+        reader.join(timeout=FRONT_STOP_S)
+        if reader.is_alive():
+            raise AssertionError("front door: the event stream outlived the "
+                                 "server agent")
+        out["shutdown_s"] = time.perf_counter() - t0
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"front door: jobs stopped, no task process left, in "
+            f"{out['stop_s']:.3f} s; {FRONT_AGENTS} agent processes (SIGINT, "
+            f"rc 0) and the server agent down in {out['shutdown_s']:.3f} s; "
+            f"phase {out['phase_s']:.1f} s (card: {card})")
+    finally:
+        for proc in procs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        if agent is not None:
+            agent.shutdown()
+        for pid in phase_tasks(tmp):
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4636,6 +5400,7 @@ def run_phases() -> int:
     timed("restart", phase_restart, card, results)
     timed("guarded", phase_guarded, card, results)
     timed("agents", phase_agents, card, results)
+    timed("front door", phase_front_door, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "
@@ -4657,6 +5422,14 @@ def run_phases() -> int:
         f"{agents['commit_to_running_p50_ms']:.1f} ms / p99 "
         f"{agents['commit_to_running_p99_ms']:.1f} ms; reattach "
         f"{agents['reattach_s']:.3f} s; deployment {agents['deploy_s']:.3f} s "
+        f"(card: {card})")
+    front = results["front_door"]
+    log(f"front door: {N_NODES} nodes over the wire in "
+        f"{front['register_s']:.3f} s; HTTP burst {front['evals_per_s']:.1f} "
+        f"evals/s (in-process server phase {fused['evals_per_s']:.1f}); "
+        f"agents' echo job submit -> running {front['echo_running_s']:.3f} s; "
+        f"migration {front['migration_s']:.3f} s, drain "
+        f"{front['drain_s']:.3f} s; phase {front['phase_s']:.1f} s "
         f"(card: {card})")
 
     sources = {

@@ -9,8 +9,9 @@ pure function of two successive metric snapshots (rates are deltas /
 interval), so the screen layout is testable without a server: pass it
 ``MetricsRegistry.snapshot()``, ``SLOObservatory.slo_report()``,
 ``health_report()`` and ``OverloadController.report()``.  A copy of the
-reference package's ``obs/top.py``; this package has no HTTP API yet, so
-``run_top`` takes any object with ``address`` and those four methods.
+reference package's ``obs/top.py``: ``run_top`` takes an
+``api.client.APIClient`` (``nomad-tpu top``), or any object with
+``address`` and those four methods.
 
 Layout:
 

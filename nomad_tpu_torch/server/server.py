@@ -124,6 +124,11 @@ class ServerConfig:
     overload_config: Optional[object] = None
     admission_rate: Optional[float] = None
     admission_burst: Optional[float] = None
+    # Multi-server consensus, carried for the agent's config file and
+    # flags: this package has no replication yet, and api.Agent refuses a
+    # config that sets either.
+    peers: List[str] = field(default_factory=list)
+    raft_enabled: bool = False
 
 
 class Server:
@@ -143,6 +148,9 @@ class Server:
         )
         self.store = StateStore(matrix=self.matrix)
         self.store.scheduler_config = self.config.scheduler_config
+        # The reference's replicator (set by its setup_replication); this
+        # package has no replication yet.
+        self.replicator = None
         if self.config.data_dir:
             from ..state.wal import WriteAheadLog
 
@@ -292,6 +300,15 @@ class Server:
             self._index = max(self._index, self.store.latest_index) + 1
             return self._index
 
+    # Membership (`server join` / `server remove-peer`): the reference's
+    # answer when no replicator runs, which is always so in this package.
+
+    def join_peer(self, addr: str) -> List[str]:
+        raise ValueError("server is not running replication")
+
+    def remove_peer(self, addr: str) -> List[str]:
+        raise ValueError("server is not running replication")
+
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
@@ -406,6 +423,7 @@ class Server:
         self.eval_broker.shutdown()
         self.plan_queue.shutdown()
         self.heartbeater.set_enabled(False)
+        self.store.close_watches()
         if self.store.wal is not None:
             # Clean-shutdown snapshot: compacts the log and speeds the next
             # boot (crash-stop restores identically from WAL replay).
@@ -1265,7 +1283,11 @@ class Server:
         node_endpoint.go:915): blocks until the allocs table passes
         ``min_index`` (or timeout), then returns (allocs, table_index); the
         index never goes below ``min_index``, so a watcher never goes
-        backwards."""
+        backwards.  Once the server has shut down it raises, so that a
+        client still watching takes its backoff instead of asking again at
+        once (a query parked at shutdown returns what the store holds)."""
+        if self.store.watches_closed:
+            raise RuntimeError("server is shut down")
         index = self.store.wait_for_table("allocs", min_index, timeout=timeout)
         return self.store.allocs_by_node(node_id), max(index, min_index)
 

@@ -150,7 +150,13 @@ class StateStore:
         # _bump notifies under the watch lock, which orders the notify
         # after any waiter's failed predicate check (no lost wakeups).
         self._watch_cond = threading.Condition(threading.Lock())
+        # Set by close_watches() when the server shuts down: blocking
+        # queries parked in wait_for_table return at once.
+        self._watches_closed = False
         self.matrix = matrix if matrix is not None else NodeMatrix()
+        # The reference's replication seam; this package has no replicator
+        # yet, so it stays None (the HTTP API reads it).
+        self.replicator = None
 
         # Durability seam (attach_wal): top-level mutations journal through
         # the @journaled decorator; replay suppresses re-journaling.
@@ -252,10 +258,24 @@ class StateStore:
         returns the current table index (memdb WatchSet equivalent)."""
         with self._watch_cond:
             self._watch_cond.wait_for(
-                lambda: self._table_index.get(table, 0) > min_index,
+                lambda: self._table_index.get(table, 0) > min_index
+                or self._watches_closed,
                 timeout=timeout,
             )
             return self._table_index.get(table, 0)
+
+    def close_watches(self) -> None:
+        """Wake every blocking query and let later ones return at once
+        (server shutdown: an HTTP handler parked in a client's blocking
+        query must not hold its thread for the query's wait).  Callers
+        that loop on a wait check ``watches_closed`` and stop."""
+        with self._watch_cond:
+            self._watches_closed = True
+            self._watch_cond.notify_all()
+
+    @property
+    def watches_closed(self) -> bool:
+        return self._watches_closed
 
     def snapshot(self) -> "StateSnapshot":
         with self._lock:

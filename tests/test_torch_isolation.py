@@ -42,6 +42,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import nomad_tpu_torch.parallel, nomad_tpu_torch.obs\n"
         "import nomad_tpu_torch.stream, nomad_tpu_torch.state.wal\n"
         "import nomad_tpu_torch.structs.serde, nomad_tpu_torch.retry\n"
+        "import nomad_tpu_torch.api.agent, nomad_tpu_torch.api.http_server\n"
+        "import nomad_tpu_torch.api.rpc, nomad_tpu_torch.api.config_file\n"
+        "import nomad_tpu_torch.cli\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -53,6 +56,9 @@ def test_import_loads_no_jax_and_no_reference():
     assert "nomad_tpu_torch.parallel.sharding" in loaded
     assert "nomad_tpu_torch.obs.evaluator" in loaded
     assert "nomad_tpu_torch.stream.broker" in loaded
+    assert "nomad_tpu_torch.api.http_server" in loaded
+    assert "nomad_tpu_torch.api.rpc" in loaded
+    assert "nomad_tpu_torch.cli" in loaded
     bad = [m for m in loaded if forbidden(m)]
     assert bad == []
 
@@ -70,7 +76,8 @@ def imports_of(path: Path):
 def test_no_module_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    for must in ("entry.py", "parallel/__init__.py", "parallel/sharding.py"):
+    for must in ("entry.py", "parallel/__init__.py", "parallel/sharding.py",
+                 "api/http_server.py", "api/rpc.py", "cli.py"):
         assert PORT / must in files
     bad = {str(f.relative_to(REPO)): name
            for f in files for name in imports_of(f) if forbidden(name)}

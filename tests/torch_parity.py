@@ -6,6 +6,13 @@ Sizes stay small (≤ 256 nodes, ≤ 8 lanes, ≤ 4 placements) so the suite
 runs in seconds on the CPU.
 """
 
+import json
+import re
+import time
+import urllib.error
+import urllib.request
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -203,3 +210,195 @@ def assert_packed_equal(got, want, cols=None):
     np.testing.assert_array_equal(got[..., exact], want[..., exact])
     np.testing.assert_allclose(got[..., 1:3], want[..., 1:3], rtol=RTOL,
                                atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# HTTP agents of both packages (test_torch_api.py, test_torch_cli.py,
+# test_torch_wire.py)
+# ---------------------------------------------------------------------------
+
+_UUID = re.compile(
+    r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+_ADDR = re.compile(r"http://127\.0\.0\.1:\d+")
+# Short ids: generated node names ("node-<8 hex>") and id prefixes.
+_SHORT = re.compile(r"\b[0-9a-f]{8}\b")
+_SECRET_KEYS = ("secret_id", "accessor_id", "SecretID", "AccessorID")
+# The one agent node of each package, with the same id in both.
+AGENT_NODE_ID = "parity-agent-0"
+
+
+# Wall-clock stamps and measured durations.  Durations of the job spec
+# (min_healthy_time, kill_timeout, ...) are compared exactly.
+_CLOCK_KEYS = frozenset((
+    "create_time", "modify_time", "submit_time", "reschedule_time",
+    "allocation_time", "timestamp", "time", "uptime_s", "at"))
+
+
+def _volatile(key) -> bool:
+    """Keys whose values differ between two runs of the same script: raft
+    indexes, wall-clock times, ACL secrets."""
+    if not isinstance(key, str):
+        return False
+    low = key.lower()
+    return (low.endswith("index") or low.endswith("_at")
+            or low in _CLOCK_KEYS or key in _SECRET_KEYS)
+
+
+def mask(obj, key=None):
+    """``obj`` with ids, timestamps, indexes and addresses masked."""
+    if isinstance(obj, dict):
+        return {k: mask(v, k) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [mask(v, key) for v in obj]
+    if _volatile(key) and isinstance(obj, (int, float, str)) and not (
+            isinstance(obj, bool)):
+        return "<masked>"
+    if isinstance(obj, str):
+        return _SHORT.sub("<id8>", _ADDR.sub("<addr>", _UUID.sub("<id>", obj)))
+    return obj
+
+
+def canon(obj):
+    """``mask(obj)`` with a top-level list in a stable order (the stores
+    list objects in insertion order, which concurrent writers may vary)."""
+    out = mask(obj)
+    if isinstance(out, list):
+        out = sorted(out, key=lambda v: json.dumps(v, sort_keys=True))
+    return out
+
+
+def http(addr, method, path, body=None, token="", raw=False, timeout=30):
+    """One request; returns (status, decoded JSON or raw bytes, headers).
+    HTTP errors are returned, not raised."""
+    data = json.dumps(body).encode() if body is not None else None
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["X-Nomad-Token"] = token
+    req = urllib.request.Request(addr + path, data=data, method=method,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, payload, hdrs = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        code, payload, hdrs = exc.code, exc.read(), dict(exc.headers)
+    if raw:
+        return code, payload, hdrs
+    return code, (json.loads(payload) if payload else None), hdrs
+
+
+def agent_config(pkg_name, data_dir, client=True, server=True, **server_kw):
+    """An agent config of one package (``"jax"`` or ``"port"``): one
+    scheduling worker, long heartbeat TTLs, the SLO loop and the overload
+    gate off unless asked (their events and verdicts follow wall time)."""
+    if pkg_name == "jax":
+        from nomad_tpu.api import AgentConfig
+        from nomad_tpu.client import ClientConfig
+        from nomad_tpu.server import ServerConfig
+    else:
+        from nomad_tpu_torch.api import AgentConfig
+        from nomad_tpu_torch.client import ClientConfig
+        from nomad_tpu_torch.server import ServerConfig
+    kw = dict(num_workers=1, node_capacity=16, heartbeat_min_ttl=3600.0,
+              heartbeat_max_ttl=7200.0, slo_enabled=False,
+              overload_enabled=False)
+    kw.update(server_kw)
+    return AgentConfig(
+        server_enabled=server, client_enabled=client,
+        server_config=ServerConfig(**kw),
+        client_config=ClientConfig(data_dir=str(data_dir)),
+    )
+
+
+def start_agent(pkg_name, cfg):
+    """Build and start an agent of one package; the port's on the CPU.  An
+    in-process client gets the fixed node id ``AGENT_NODE_ID``."""
+    if pkg_name == "jax":
+        from nomad_tpu.api import Agent
+
+        agent = Agent(cfg)
+    else:
+        from nomad_tpu_torch.api import Agent
+
+        agent = Agent(cfg, device="cpu")
+    if agent.client is not None:
+        agent.client.node.id = AGENT_NODE_ID
+        agent.client.node.name = AGENT_NODE_ID
+    agent.start()
+    return agent
+
+
+@contextmanager
+def agent_pair(tmp_path, client=True, **server_kw):
+    """A JAX agent and a port agent on the same config, each with an
+    in-process mock-driver client unless ``client`` is False; yields
+    ``{"jax": agent, "port": agent}`` and shuts both down."""
+    agents = {}
+    try:
+        for name in ("jax", "port"):
+            agents[name] = start_agent(name, agent_config(
+                name, tmp_path / f"{name}-client", client=client,
+                **server_kw))
+        yield agents
+    finally:
+        for agent in agents.values():
+            agent.shutdown()
+
+
+def wait_until(pred, what, timeout=45.0, every=0.02):
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise AssertionError(
+                f"timed out after {timeout} s waiting for {what}")
+        time.sleep(every)
+
+
+def settle_agent(agent, timeout=45.0):
+    """The agent's server is quiet: no eval queued, pending, delayed or in
+    flight, every stored eval terminal or blocked, three polls in a row."""
+    srv = agent.server
+    broker = srv.eval_broker
+    quiet = 0
+    deadline = time.time() + timeout
+    while quiet < 3:
+        if time.time() > deadline:
+            raise AssertionError(f"server did not settle in {timeout} s")
+        busy = (broker.ready_count() + broker.unacked_count()
+                + broker.pending_count() + broker.delayed_count())
+        open_evals = [e for e in list(srv.store.evals.values())
+                      if not e.terminal_status() and e.status != "blocked"]
+        quiet = quiet + 1 if not busy and not open_evals else 0
+        time.sleep(0.03)
+
+
+_CHILD = re.compile(r"/(dispatch|periodic)-\d+(-[0-9a-f]{8})?")
+
+
+def assert_same(jax, port, path="body"):
+    """The JAX agent's and the port's masked responses are equal: every
+    value exactly, except the floats under ``scores`` (an alloc's
+    placement scores), which hold to the kernels' contract RTOL/ATOL."""
+    jax, port = mask(jax), mask(port)
+    _same(jax, port, path, scores=False)
+
+
+def _same(a, b, path, scores):
+    if isinstance(a, str) and isinstance(b, str):
+        a, b = _CHILD.sub("/<child>", a), _CHILD.sub("/<child>", b)
+    if isinstance(a, dict) and isinstance(b, dict):
+        assert sorted(a) == sorted(b), (
+            f"{path}: keys differ: jax-only {sorted(set(a) - set(b))}, "
+            f"port-only {sorted(set(b) - set(a))}")
+        for k in a:
+            _same(a[k], b[k], f"{path}.{k}", scores or k == "scores")
+        return
+    if isinstance(a, list) and isinstance(b, list):
+        assert len(a) == len(b), f"{path}: {len(a)} items vs {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]", scores)
+        return
+    if (scores and isinstance(a, float) and isinstance(b, float)
+            and not isinstance(a, bool)):
+        assert abs(a - b) <= ATOL + RTOL * abs(a), f"{path}: {a} vs {b}"
+        return
+    assert a == b, f"{path}: jax {a!r} vs port {b!r}"
