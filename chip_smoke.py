@@ -263,6 +263,31 @@ Phases:
    seconds, the HTTP burst's evals/s beside the in-process server
    phase's, submit -> running of the agents' jobs, the migration and
    drain seconds.
+14. sharded — K9, the node-sharded dispatch, at the same width (10,000
+   nodes, capacity 10240, 64 lanes, P=16).  On each mesh of
+   ``["cuda:0"] * 4`` (batch 2 x node 2) and ``["cuda:0"] * 8`` (2 x 4)
+   of virtual shards, and of every card when there are several, on both
+   batches of phase 2: ``sharded_fused_place_batch`` against the
+   unsharded ``fused_place_batch``, ``sharded_place_batch`` against
+   ``place_batch`` and ``sharded_schedule_step`` against ``score_batch``,
+   every column exactly (scores and binpack max |err| 0), the step's
+   usage against the unsharded usage plus the picks' asks exactly (its
+   ``sharded_usage`` launches counted around the steps), and
+   ``sharded_place`` (the kernel, P + 1 launches a shard with the offer
+   exchange between them), ``sharded_usage`` and the windowed
+   ``allocs_fit_verify`` against their plain versions.  Then live servers: one on ``["cuda:0"] * 4``
+   and one on the card alone register the server phases' 10,000 nodes
+   with the same usage, place 16 service jobs one at a time onto the
+   same nodes, and take a burst of 64 (evals/s of both; with several
+   cards a third server over all of them does the same); with the counts
+   zeroed around the sharded burst, ``sharded_place`` and the windowed
+   ``allocs_fit_verify`` must have launched, and no plain version.  A
+   server on ``["cuda:0"] * 8`` evacuates node shard 1 mid-burst
+   (``coalescer.evacuate_shard``): every eval completes, and the layout
+   equals a from-scratch one on the three survivors; after the heal a
+   second burst completes on four shards again, the layout equal to a
+   from-scratch one.  Logs the launch counts, the offer copies per
+   dispatch, the dispatch time and both bursts' evals/s.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -757,25 +782,54 @@ def score_batch_work(arrays, reqs, f, args, packed):
     return matrix_bytes(n, reqs, live, f, terms) + lane_bytes + out_bytes, ops
 
 
-def verify_work(batch: Batch, packed, n_placements: int):
+def verify_work(batch: Batch, packed, n_placements: int, window=None):
     """(bytes, float32 ops) of the cross-lane AllocsFit scan: the rows the
     live lanes' deltas and placements touch (totals and used, 12 bytes
     each), the live lanes' deltas and asks, the packed columns in and out;
-    three adds per delta, three adds and three compares per placement."""
+    three adds per delta, three adds and three compares per placement.
+
+    With ``window`` (``(lo, hi)``, global rows) it is the windowed launch
+    of the node-sharded verify, which decides only rows inside it: it
+    reads every pick's and delta's row to find them, but totals, used,
+    delta values and asks only for the rows and lanes inside, and does
+    the adds and compares only there."""
     from nomad_tpu_torch.ops import kernels as k
 
     live = np.asarray(batch.np["lane_mask"], bool)
     b = live.shape[0]
     rows = np.asarray(packed.cpu())[..., k.PACKED_ROW][live]
     drows = batch.np["delta_rows"][live]
-    touched = np.union1d(rows[rows >= 0], drows[drows >= 0])
-    n_deltas = int((drows >= 0).sum())
-    n_placed = int((rows >= 0).sum())
+    lo, hi = window if window is not None else (0, np.inf)
+
+    def inside(r):
+        return (r >= lo) & (r < hi)
+
+    touched = np.union1d(rows[(rows >= 0) & inside(rows)],
+                         drows[(drows >= 0) & inside(drows)])
+    n_deltas = int(((drows >= 0) & inside(drows)).sum())
+    n_placed = int(((rows >= 0) & inside(rows)).sum())
+    if window is None:
+        lanes = int(live.sum())
+        delta_bytes = lanes * drows.shape[1] * 16
+    else:
+        lanes = int(((rows >= 0) & inside(rows)).any(axis=1).sum())
+        delta_bytes = drows.size * 4 + n_deltas * 12
     nbytes = (len(touched) * 12 * 2
               + b * n_placements * (k.PACKED_WIDTH + k.FUSED_PACKED_WIDTH) * 4
-              + int(live.sum()) * (3 * 4 + drows.shape[1] * 16) + b)
+              + lanes * 3 * 4 + delta_bytes + b)
     ops = 3 * n_deltas + 6 * n_placed
     return nbytes, ops
+
+
+def sharded_usage_work(rows, n_local: int, row_offset: int):
+    """(bytes, float32 ops) of the sharded step's usage update on one
+    shard of ``n_local`` rows from ``row_offset``: every pick's row read
+    once (4 bytes), the asks of the picks inside the window (12 bytes
+    each), the shard's usage in and out (12 bytes a row each way); three
+    adds per pick inside."""
+    rows = np.asarray(rows)
+    mine = int(((rows >= row_offset) & (rows < row_offset + n_local)).sum())
+    return rows.size * 4 + mine * 12 + n_local * 24, 3 * mine
 
 
 def system_feasible_work(arrays, req, n_classes: int):
@@ -3381,7 +3435,7 @@ def phase_restart(card: str, results: dict) -> None:
         cols = srv4.matrix._device
         if any(a is b for a, b in zip(cols, old)):
             raise AssertionError("restart: the install kept a device column")
-        if not all(r() is t for r, t in zip(k._checked_matrix[0], cols)):
+        if not all(r() is t for r, t in zip(k._checked_matrices[0][0], cols)):
             raise AssertionError("restart: the kernels' memoised columns are "
                                  "not the installed matrix's")
         out["installed_launches"] = launches
@@ -5330,6 +5384,429 @@ def phase_front_door(card: str, results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the node-sharded dispatch (K9)
+# ---------------------------------------------------------------------------
+
+SHARD_SEQ_JOBS = 16  # jobs placed one at a time on both servers
+
+
+def shard_meshes():
+    """The meshes phase 14 holds against the unsharded kernels: four and
+    eight virtual shards of the first card, and every card when there are
+    several."""
+    import torch
+
+    meshes = [["cuda:0"] * 4, ["cuda:0"] * 8]
+    if torch.cuda.device_count() > 1:
+        meshes.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    return meshes
+
+
+def sharded_operands(batch: Batch):
+    """A batch's lane operands as host arrays, in the sharded programs'
+    order (deltas, tg counts, spread counts, penalties, packed request,
+    class eligibility, host masks, lane mask)."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    n = batch.np
+    ri, rf = k.pack_requests(n["reqs"])
+    return (n["delta_rows"], n["delta_vals"], n["tg_counts"],
+            n["spread_counts"], n["penalties"], ri, rf, n["class_eligs"],
+            n["host_masks"], n["lane_mask"])
+
+
+def exact(label: str, got, want) -> None:
+    got, want = np.asarray(got.cpu()), np.asarray(want.cpu())
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = np.argwhere(got != want) if got.shape == want.shape else []
+        raise AssertionError(f"sharded: {label} differs from the unsharded "
+                             f"kernel ({len(bad)} entries; first {bad[:3]})")
+
+
+def sharded_place_work(batch: Batch, packed, mesh):
+    """(bytes, float32 ops) of the sharded placement scan on the busiest
+    card: the function's own (``fused_place_work``: the columns the live
+    lanes refer to read once, the lanes' operands once, the output once,
+    and the operations the data needs) in that card's share of the node
+    shards.  Also returns the bytes this design moves there, which reads
+    its shards' column slices once a step (it rescores every row at
+    every step): the per-step re-read, logged beside the bound."""
+    nbytes, ops = fused_place_work(batch, packed, SCAN)
+    arrays, f, reqs = batch.arrays, batch.features, batch.np["reqs"]
+    n = int(arrays.used.shape[0])
+    live = np.asarray(batch.np["lane_mask"], bool)
+    terms = [LaneTerms(reqs, lane, f) for lane in np.flatnonzero(live)]
+    cols = matrix_bytes(n, reqs, live, f, terms)
+    devs = [str(d) for d in mesh.flat()]
+    share = max(devs.count(d) for d in set(devs)) / len(devs)
+    return nbytes * share, ops * share, (cols * SCAN + nbytes - cols) * share
+
+
+def step_usage(used, rows, asks, n_batch: int) -> np.ndarray:
+    """The unsharded usage after a step's picks: ``used`` plus each pick's
+    ask, summed in lane order per batch row, the rows' parts then added
+    in order (float32, as the reference's scatter and psum)."""
+    used = np.asarray(used, np.float32)
+    rows = np.asarray(rows)
+    per = len(rows) // n_batch
+    delta = np.zeros_like(used)
+    for i in range(n_batch):
+        part = np.zeros_like(used)
+        for lane in range(i * per, (i + 1) * per):
+            if rows[lane] >= 0:
+                part[rows[lane]] += asks[lane]
+        delta = delta + part
+    return used + delta
+
+
+def same_layout(srv, order, shards: int, label: str) -> None:
+    """The server's rows equal a from-scratch matrix of ``shards`` home
+    shards that took the nodes ``order`` in that order."""
+    from nomad_tpu_torch.state.matrix import NodeMatrix
+
+    twin = NodeMatrix(capacity=srv.matrix.capacity, device="cpu")
+    twin.set_shard_count(shards)
+    for nid in order:
+        twin.upsert_node(srv.store.node_by_id(nid))
+    if twin.row_of != srv.matrix.row_of:
+        raise AssertionError(f"{label}: the layout differs from a "
+                             f"from-scratch one on {shards} shards")
+
+
+def wait_terminal(srv, evals, timeout_s: float = 300.0) -> None:
+    deadline = time.time() + timeout_s
+    while time.time() < deadline and not all(
+            last_eval(srv, e.id) is not None
+            and last_eval(srv, e.id).terminal_status() for e in evals):
+        time.sleep(0.01)
+    statuses = {last_eval(srv, e.id).status for e in evals}
+    if statuses != {"complete"}:
+        raise AssertionError(f"eval statuses {statuses}")
+
+
+def check_sharded_launches(launches: dict) -> None:
+    """The sharded burst placed through ``sharded_place`` and the windowed
+    ``allocs_fit_verify``, never a plain version or the unsharded path."""
+    if (launches["sharded_place"] <= 0
+            or launches["allocs_fit_verify_window"] <= 0):
+        raise AssertionError(f"sharded: a kernel never launched: {launches}")
+    if launches["plain"] or launches["fused_place"] or launches[
+            "allocs_fit_verify"]:
+        raise AssertionError(f"sharded: a plain version or the unsharded "
+                             f"path ran: {launches}")
+
+
+def check_usage_launches(launches: int) -> None:
+    """The sharded steps updated the usage through ``sharded_usage``."""
+    if launches <= 0:
+        raise AssertionError("sharded: the step never launched sharded_usage")
+
+
+def phase_sharded(card: str, results: dict) -> None:
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.parallel import sharding
+    from nomad_tpu_torch.server.server import Server
+
+    m = build_cluster(N_NODES, CAPACITY, "cuda")
+    batches = make_batches(m, "cuda")
+    rp = results.setdefault("sharded_place", {"max_abs_err": 0.0})
+    rv = results.setdefault("allocs_fit_verify_window", {"max_abs_err": 0.0})
+    ru = results.setdefault("sharded_usage", {"max_abs_err": 0.0,
+                                              "launches": 0})
+    out = results.setdefault("sharded", {})
+    ask = k.REQ_FLOAT_OFF["ask"][0]
+
+    # -- 14a: the three programs against the unsharded kernels, and the
+    # kernels against their plain versions.
+    for devs in shard_meshes():
+        mesh = sharding.make_mesh(devices=devs)
+        sharded = sharding.shard_matrix_arrays(mesh, batches[0].arrays)
+        for label, batch in zip(("bench-shapes", "features"), batches):
+            ops = sharded_operands(batch)
+            f = batch.features
+            args = batch.args()
+            got = sharding.sharded_fused_place_batch(mesh, SCAN)(
+                sharded, *ops, features=f)
+            exact(f"{mesh.shape} {label} fused", got,
+                  k.fused_place_batch(*args, SCAN, f))
+            got = sharding.sharded_place_batch(mesh, SCAN)(sharded, *ops[:-1])
+            exact(f"{mesh.shape} {label} staged", got,
+                  k.place_batch(*args[:-1], SCAN))
+            # The step is the path of the sharded_usage kernel: its
+            # launches count from here to the step's return.
+            k.reset_counts()
+            res, used_after = sharding.sharded_schedule_step(mesh)(
+                sharded, *ops[2:-1])
+            ru["launches"] += k.sharded_usage.launches
+            want = k.score_batch(*args[:2], *args[4:-1])
+            exact(f"{mesh.shape} {label} step", k.pack_batch_result(res),
+                  k.pack_batch_result(want))
+            want_used = torch.from_numpy(step_usage(
+                batch.arrays.used.cpu(), want.rows.cpu(),
+                ops[6][:, ask:ask + 3], mesh.shape[0]))
+            for i, row in enumerate(used_after):
+                exact(f"{mesh.shape} {label} step usage (batch row {i})",
+                      torch.cat([u.cpu() for u in row]), want_used)
+            # sharded_usage against its plain version on the last shard.
+            step_packed = k.pack_batch_result(res)[:, None].contiguous()
+            last = sharded.shards[0][-1]
+            off = sharded.row_offset(mesh.shape[1] - 1)
+            d = last.used.device
+            rf = torch.from_numpy(ops[6]).to(d)
+            uk = k.sharded_usage(last.used, step_packed.to(d), rf,
+                                 mesh.shape[0], off)
+            up = k.sharded_usage_plain(last.used.cpu(), step_packed.cpu(),
+                                       rf.cpu(), mesh.shape[0], off)
+            err = float((uk.cpu() - up).abs().max())
+            ru["max_abs_err"] = max(ru["max_abs_err"], err)
+            if not torch.equal(uk.cpu(), up):
+                raise AssertionError(f"sharded_usage disagrees with its "
+                                     f"plain version on {label}: max |err| "
+                                     f"{err}")
+            groups = sharding._lane_groups(sharded, *ops)
+            kern = k.sharded_place(groups, SCAN, f)
+            plain = [k.sharded_place_plain(row, SCAN, f) for row in groups]
+            _sync()
+            for a, b in zip(kern, plain):
+                ok, err, msg = compare(a.cpu(), b.cpu(), k.PACKED_WIDTH)
+                rp["max_abs_err"] = max(rp["max_abs_err"], err)
+                if not ok or not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"sharded_place disagrees with its "
+                                         f"plain version on {label}: {msg}")
+            last = sharded.shards[0][-1]
+            off = sharded.row_offset(mesh.shape[1] - 1)
+            d = last.used.device
+            packed = torch.cat([o.to(d) for o in kern])
+            t = batch.t
+            vargs = (last.totals, last.used, packed, t["req_f"].to(d),
+                     t["delta_rows"].to(d), t["delta_vals"].to(d),
+                     t["lane_mask"].to(d))
+            vk = k.allocs_fit_verify(*vargs, row_offset=off)
+            vp = k.verify_lanes(*vargs, row_offset=off)
+            ok, err, msg = compare(vk.cpu(), vp.cpu(), k.FUSED_PACKED_WIDTH)
+            rv["max_abs_err"] = max(rv["max_abs_err"], err)
+            if not ok or not torch.equal(vk.cpu(), vp.cpu()):
+                raise AssertionError(f"windowed allocs_fit_verify disagrees "
+                                     f"with its plain version: {msg}")
+            log(f"sharded[{mesh.shape} {label}]: fused, staged and step "
+                f"equal the unsharded kernels in every column, and the "
+                f"step's usage the unsharded usage plus the picks' asks; "
+                f"sharded_place, the windowed allocs_fit_verify and "
+                f"sharded_usage equal their plain versions (max |err| "
+                f"{rp['max_abs_err']:.3g} / {rv['max_abs_err']:.3g} / "
+                f"{ru['max_abs_err']:.3g})")
+    rp["matches_plain"] = rv["matches_plain"] = ru["matches_plain"] = True
+    check_usage_launches(ru["launches"])
+
+    # -- 14b: times at 4 and 8 virtual shards, on the feature batch.
+    feat = batches[1]
+    ops = sharded_operands(feat)
+    for devs in shard_meshes()[:2]:
+        mesh = sharding.make_mesh(devices=devs)
+        sharded = sharding.shard_matrix_arrays(mesh, feat.arrays)
+        groups = sharding._lane_groups(sharded, *ops)
+        fn = sharding.sharded_fused_place_batch(mesh, SCAN)
+        kern_ms = time_cuda(lambda: k.sharded_place(groups, SCAN,
+                                                    feat.features), 5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(sharded, *ops, features=feat.features)
+        _sync()
+        dispatch_ms = (time.perf_counter() - t0) / 5 * 1e3
+        packed = torch.cat([o.to(mesh.lead) for o in
+                            k.sharded_place(groups, SCAN, feat.features)])
+        nbytes, nops, reread = sharded_place_work(feat, packed, mesh)
+        b_ms, b_by = bound(nbytes, nops)
+        key = f"x{len(devs)}"
+        out[key] = {"sharded_place_ms": kern_ms, "dispatch_ms": dispatch_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "design_bytes": reread}
+        log(f"sharded[{key}]: sharded_place {kern_ms:.4f} ms a dispatch "
+            f"({(SCAN + 1) * len(devs)} launches, CUDA events), bound "
+            f"{b_ms:.6f} ms by {b_by} ({nbytes:.0f} bytes, {nops:.4g} ops "
+            f"on the busiest card); this design's per-step re-read moves "
+            f"{reread:.0f} bytes there ({reread / HBM_BYTES_PER_S * 1e3:.6f}"
+            f" ms at the memory rate); the whole fused dispatch "
+            f"{dispatch_ms:.3f} ms on the host clock (card: {card})")
+        if len(devs) != 4:
+            continue
+        rp["ms"], rp["bound_ms"], rp["bound_by"] = kern_ms, b_ms, b_by
+        rp["plain_ms"] = time_cuda(
+            lambda: [k.sharded_place_plain(row, SCAN, feat.features)
+                     for row in groups], 1, warmup=0)
+        rp["device_us"] = device_us_per_launch(
+            lambda: k.sharded_place(groups, SCAN, feat.features),
+            "sharded_place_kernel", runs=4)
+        shard = sharded.shards[0][1]
+        d = shard.used.device
+        t = feat.t
+        vargs = (shard.totals, shard.used, packed.to(d), t["req_f"].to(d),
+                 t["delta_rows"].to(d), t["delta_vals"].to(d),
+                 t["lane_mask"].to(d))
+        off = sharded.row_offset(1)
+        rv["ms"] = time_cuda(
+            lambda: k.allocs_fit_verify(*vargs, row_offset=off), 20)
+        rv["plain_ms"] = time_cuda(
+            lambda: k.verify_lanes(*vargs, row_offset=off), 1, warmup=0)
+        rv["bound_ms"], rv["bound_by"] = bound(*verify_work(
+            feat, packed, SCAN, window=(off, off + sharded.n_local)))
+        rv["device_us"] = device_us_per_launch(
+            lambda: k.allocs_fit_verify(*vargs, row_offset=off),
+            "allocs_fit_verify_kernel")
+        rp["library_ms"] = rv["library_ms"] = None
+        # sharded_usage on the same shard, after the feature batch's step.
+        res, _ = sharding.sharded_schedule_step(mesh)(sharded, *ops[2:-1])
+        step_packed = k.pack_batch_result(res)[:, None].contiguous().to(d)
+        rf = torch.from_numpy(ops[6]).to(d)
+        uargs = (shard.used, step_packed, rf, mesh.shape[0], off)
+        ru["ms"] = time_cuda(lambda: k.sharded_usage(*uargs), 20)
+        ru["plain_ms"] = time_cuda(
+            lambda: k.sharded_usage_plain(
+                shard.used.cpu(), step_packed.cpu(), rf.cpu(),
+                mesh.shape[0], off), 3, warmup=1)
+        ru["device_us"] = device_us_per_launch(
+            lambda: k.sharded_usage(*uargs), "sharded_usage_kernel")
+        rows = res.rows.cpu().numpy()
+        ru["bound_ms"], ru["bound_by"] = bound(
+            *sharded_usage_work(rows, sharded.n_local, off))
+        # The library's scatter-add of the same asks into the same rows
+        # (the picks inside the window, chosen before the timing).
+        mine = np.flatnonzero((rows >= off) & (rows < off + sharded.n_local))
+        idx = torch.from_numpy((rows[mine] - off).astype(np.int64)).to(d)
+        src = rf[torch.from_numpy(mine).to(d), ask:ask + 3].contiguous()
+        ru["library_ms"] = time_cuda(
+            lambda: shard.used.index_add(0, idx, src), 20)
+        log(f"sharded: sharded_usage {ru['ms']:.4f} ms (device "
+            f"{fmt_us(ru['device_us'])}), plain {ru['plain_ms']:.1f} ms, "
+            f"index_add {ru['library_ms']:.4f} ms, bound "
+            f"{ru['bound_ms']:.6f} ms by {ru['bound_by']} (card: {card})")
+        log(f"sharded: sharded_place device {fmt_us(rp['device_us'])} a "
+            f"launch, plain version {rp['plain_ms']:.1f} ms; windowed "
+            f"allocs_fit_verify {rv['ms']:.4f} ms (device "
+            f"{fmt_us(rv['device_us'])}), plain {rv['plain_ms']:.1f} ms, "
+            f"bound {rv['bound_ms']:.6f} ms (card: {card})")
+
+    # -- 14c: live servers, sharded over four virtual shards and alone.
+    def run(label, device, shards=None):
+        cfg = server_config()
+        # The one-device server says so: by default a host of several
+        # cards shards over all of them.
+        cfg.n_device_shards = shards
+        srv = Server(cfg, device=device)
+        srv.start()
+        try:
+            # Nodes by registration order (their ids are random).
+            index = {nid: i for i, nid in enumerate(
+                register_cluster(srv, label))}
+            seq = {}
+            for i in range(SHARD_SEQ_JOBS):
+                ev = srv.submit_job(service_job(i))
+                done = srv.wait_for_eval(ev.id, timeout=120.0)
+                if done is None or done.status != "complete":
+                    raise AssertionError(f"{label}: eval {done}")
+                for a in srv.store.allocs_by_job("default", ev.job_id):
+                    seq[(i, a.name.rsplit(".", 1)[-1])] = index[a.node_id]
+            k.reset_counts()
+            d0 = srv.coalescer.dispatches
+            evals, elapsed = burst(
+                srv, [service_job(i) for i in range(SERVER_JOBS)])
+            launches = {
+                "sharded_place": k.sharded_place.launches,
+                "allocs_fit_verify_window": k.allocs_fit_verify.window_launches,
+                "fused_place": k.fused_place.launches,
+                "allocs_fit_verify": k.allocs_fit_verify.launches,
+                "plain": (k.sharded_place_plain.calls + k.place_lanes.calls
+                          + k.verify_lanes.calls
+                          + k.sharded_usage_plain.calls),
+                "copies": k.sharded_place.copies,
+                "dispatches": srv.coalescer.dispatches - d0,
+            }
+            wait_terminal(srv, evals)
+            return seq, SERVER_JOBS / elapsed, launches, srv.coalescer
+        finally:
+            srv.shutdown()
+
+    one_seq, one_rate, one_l, _ = run("sharded one-device", "cuda:0", 1)
+    seq, rate, launches, coal = run("sharded x4", ["cuda:0"] * 4)
+    if coal.n_device_shards != 4:
+        raise AssertionError(f"sharded: {coal.n_device_shards} shards")
+    if seq != one_seq or len(seq) != SHARD_SEQ_JOBS * SERVER_COUNT:
+        diff = [key for key in one_seq if seq.get(key) != one_seq[key]]
+        raise AssertionError(f"sharded: the x4 server placed {len(diff)} of "
+                             f"{len(one_seq)} allocs elsewhere than the "
+                             f"one-device server")
+    check_sharded_launches(launches)
+    if torch.cuda.device_count() > 1:
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        c_seq, c_rate, c_l, c_coal = run("sharded cards", cards)
+        if c_seq != one_seq or c_coal.n_device_shards != len(cards):
+            raise AssertionError("sharded: the server over every card placed "
+                                 "elsewhere than the one-device server")
+        check_sharded_launches(c_l)
+        out["cards_evals_per_s"] = c_rate
+        log(f"sharded: a server over {len(cards)} cards placed the "
+            f"{SHARD_SEQ_JOBS} jobs on the same nodes; burst {c_rate:.1f} "
+            f"evals/s; launches {c_l} (card: {card})")
+    rp["launches"] = launches["sharded_place"]
+    rv["launches"] = launches["allocs_fit_verify_window"]
+    copies = launches["copies"] / max(1, launches["dispatches"])
+    out.update(evals_per_s=rate, one_device_evals_per_s=one_rate,
+               launches=launches, copies_per_dispatch=copies)
+    log(f"sharded: {SHARD_SEQ_JOBS} jobs one at a time placed on the same "
+        f"nodes by the x4 and the one-device server; burst of {SERVER_JOBS} "
+        f"x {SERVER_COUNT}: x4 {rate:.1f} evals/s, one device "
+        f"{one_rate:.1f} evals/s (card: {card})")
+    log(f"sharded: launches during the x4 burst {launches}; "
+        f"{copies:.1f} offer copies a dispatch; one-device burst launches "
+        f"{one_l}")
+
+    # -- 14d: evacuation mid-burst and heal, on eight virtual shards.
+    srv = Server(server_config(), device=["cuda:0"] * 8)
+    srv.start()
+    try:
+        register_cluster(srv, "sharded x8")
+        burst(srv, [service_job(i) for i in range(4)])
+        coal = srv.coalescer
+        if srv.matrix.shard_count != 4:
+            raise AssertionError(f"x8: {srv.matrix.shard_count} home shards")
+        jobs = [service_job(i) for i in range(SERVER_JOBS)]
+        t0 = time.perf_counter()
+        evals = [srv.submit_job(j) for j in jobs[:SERVER_JOBS // 2]]
+        time.sleep(0.05)
+        order = [srv.matrix.node_of[r] for r in sorted(srv.matrix.node_of)]
+        survivors = coal.evacuate_shard(1)
+        evals += [srv.submit_job(j) for j in jobs[SERVER_JOBS // 2:]]
+        wait_terminal(srv, evals)
+        evac_s = time.perf_counter() - t0
+        if survivors != 3:
+            raise AssertionError(f"x8 evacuation: {survivors} survivors")
+        same_layout(srv, order, 3, "x8 evacuation")
+        if coal.n_device_shards != 6 or coal._mesh.shape != (2, 3):
+            raise AssertionError(f"x8: survivor mesh {coal._mesh}")
+        order = [srv.matrix.node_of[r] for r in sorted(srv.matrix.node_of)]
+        if coal.heal_shard_evacuations() != 4:
+            raise AssertionError("x8: the heal did not restore 4 shards")
+        same_layout(srv, order, 4, "x8 heal")
+        evals2, heal_s = burst(srv, [service_job(i)
+                                     for i in range(SERVER_JOBS)])
+        wait_terminal(srv, evals2)
+        if coal.n_device_shards != 8 or coal._mesh.shape != (2, 4):
+            raise AssertionError(f"x8: healed mesh {coal._mesh}")
+        if srv.metrics.snapshot().get(
+                "nomad.coalescer.shard_evacuations") != 1:
+            raise AssertionError("x8: the evacuation gauge did not count")
+        out.update(evacuation_s=evac_s, heal_burst_s=heal_s)
+        log(f"sharded x8: shard 1 evacuated mid-burst of {SERVER_JOBS}: every "
+            f"eval complete in {evac_s:.3f} s on a (2, 3) survivor mesh, the "
+            f"layout a from-scratch one on 3 shards; healed to (2, 4), the "
+            f"next burst complete in {heal_s:.3f} s (card: {card})")
+    finally:
+        srv.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -5401,6 +5878,7 @@ def run_phases() -> int:
     timed("guarded", phase_guarded, card, results)
     timed("agents", phase_agents, card, results)
     timed("front door", phase_front_door, card, results)
+    timed("sharded", phase_sharded, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "
@@ -5445,6 +5923,13 @@ def run_phases() -> int:
                         "nomad_tpu/ops/kernels.py:627"),
         "verify_plan_fit": ("nomad_tpu_torch/ops/csrc/verify_plan_fit.cu",
                             "nomad_tpu/ops/kernels.py:1077"),
+        "sharded_place": ("nomad_tpu_torch/ops/csrc/sharded_place.cu",
+                          "nomad_tpu/parallel/sharding.py:334"),
+        "allocs_fit_verify_window": (
+            "nomad_tpu_torch/ops/csrc/allocs_fit_verify.cu",
+            "nomad_tpu/parallel/sharding.py:590"),
+        "sharded_usage": ("nomad_tpu_torch/ops/csrc/sharded_place.cu",
+                          "nomad_tpu/parallel/sharding.py:284"),
     }
     table = []
     for name, (src, replaces) in sources.items():

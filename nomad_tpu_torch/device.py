@@ -7,6 +7,7 @@ on the CPU.  Callers that want the CPU (the tests) say ``device="cpu"``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,19 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {device!r}")
     return dev
+
+
+def upload(a, dev: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a contiguous tensor on
+    ``dev``.  To a card it travels through a page-locked copy, so the
+    upload only enqueues: from pageable memory an upload of MiBs waits for
+    every launch queued before it, and a stuck stream would stall the
+    caller outside the dispatch watchdog.  The copy also frees the
+    caller's staging buffer at once; torch's caching host allocator
+    reuses a page-locked block only after its upload.  On the CPU the
+    result may share the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(
+        a, np.ndarray) else a.contiguous()
+    if dev.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)

@@ -387,8 +387,8 @@ class DeviceBreaker:
             self.degraded_dispatches += 1
 
     def note_evacuation(self) -> None:
-        """A shard evacuation (the multi-card path, not in this package
-        yet: ``evacuations`` stays 0)."""
+        """A shard evacuation of the node-sharded dispatch
+        (``DeviceCoalescer.evacuate_shard``)."""
         with self._lock:
             self.evacuations += 1
 

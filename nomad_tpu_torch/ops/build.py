@@ -28,7 +28,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_place", "allocs_fit_verify", "system_feasible",
-           "score_batch", "verify_plan_fit")
+           "score_batch", "verify_plan_fit", "sharded_place")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -108,14 +108,17 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = {
     "nomad_fused_place": [_PTR] * 24 + [_INT] * 12 + [_PTR],
-    "nomad_allocs_fit_verify": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    "nomad_allocs_fit_verify": [_PTR] * 10 + [_INT] * 6 + [_PTR],
     "nomad_system_feasible": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nomad_score_batch": [_PTR] * 21 + [_INT] * 10 + [_PTR],
     "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
+    "nomad_sharded_place": [_PTR] * 25 + [_INT] * 16 + [_PTR],
+    "nomad_sharded_usage": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # Launch-shape queries of the kernels that pick their own shape.
     "nomad_fused_place_shape": [_INT] * 9 + [_PTR],
     "nomad_score_batch_shape": [_INT] * 7 + [_PTR],
     "nomad_allocs_fit_verify_shape": [_INT] * 4 + [_PTR],
+    "nomad_sharded_place_shape": [_INT] * 3 + [_PTR],
 }
 _ENTRY = {
     "fused_place": ("nomad_fused_place", "nomad_fused_place_shape"),
@@ -124,6 +127,8 @@ _ENTRY = {
     "system_feasible": ("nomad_system_feasible",),
     "score_batch": ("nomad_score_batch", "nomad_score_batch_shape"),
     "verify_plan_fit": ("nomad_verify_plan_fit",),
+    "sharded_place": ("nomad_sharded_place", "nomad_sharded_place_shape",
+                      "nomad_sharded_usage"),
 }
 
 

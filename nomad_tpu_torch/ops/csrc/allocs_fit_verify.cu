@@ -32,7 +32,17 @@
 //      events; for a longer one, lane c < 3 of its warp adds dimension c
 //      of every event in order — each row's additions in the reference's
 //      order, so the column is bit-identical.
-// No (N, 3) carry and no copy of `used`.  Each thread issues the loads of
+// No (N, 3) carry and no copy of `used`.
+//
+// The row window (the node-sharded verify, nomad_tpu/parallel/
+// sharding.py:590-640).  `totals` and `used` may be one node shard's rows
+// [row_offset, row_offset + n) of the matrix; rows in `packed` and in the
+// deltas stay global.  Events outside the window have no effect and a
+// pick outside it fits vacuously (1.0).  A launch may also take the
+// verdict columns of the other shards (`and_with`, (S', B·P) floats), and
+// its last pass writes the least verdict of each pick over all of them:
+// the cross-shard AND, so each row's owner alone can veto.  The unsharded
+// launch is the window [0, n) with no other columns.  Each thread issues the loads of
 // a phase before it uses any of them, so a phase costs one memory round
 // trip.
 //
@@ -53,6 +63,7 @@
 #include <stdint.h>
 
 #include "layout.cuh"
+#include "per_device.cuh"
 
 #define THREADS 1024
 #define WARPS (THREADS / 32)
@@ -117,7 +128,9 @@ struct Inputs {
   const int32_t* delta_rows;
   const float* delta_vals;
   const uint8_t* lane_mask;
+  const float* and_with;  // (n_and, B·P) other shards' verdicts, or null
   int n, b, p, d;
+  int off, n_and;         // the window's first global row; and_with rows
 };
 
 // One half of a stable radix pass over `count` events.  Warp w takes the
@@ -254,9 +267,10 @@ allocs_fit_verify_kernel(Inputs in, float* __restrict__ out,
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int c = base + u * 32 + ln;
-        const bool keep = live[u] && row[u] >= 0 && row[u] < in.n;
+        const int lr = row[u] - in.off;  // the row inside the window
+        const bool keep = live[u] && lr >= 0 && lr < in.n;
         kept += __popc(__ballot_sync(0xffffffffu, keep));
-        if (c < end) ev[2 * cand + c] = keep ? row[u] : -1;
+        if (c < end) ev[2 * cand + c] = keep ? lr : -1;
       }
     }
     if (ln == 0) wcount[w] = kept;
@@ -307,7 +321,7 @@ allocs_fit_verify_kernel(Inputs in, float* __restrict__ out,
         *reinterpret_cast<float2*>(o + 4) = make_float2(v[u][4], v[u][5]);
         o[6] = v[u][6];
         // Verdicts no row decides; the walk writes the others.
-        const int r = (int)v[u][0];
+        const int r = (int)v[u][0] - in.off;
         if (!live[u])
           o[VERIFIED_COL] = -1.0f;
         else if (r < 0 || r >= in.n)
@@ -498,6 +512,18 @@ allocs_fit_verify_kernel(Inputs in, float* __restrict__ out,
       }
     }
   }
+  // The cross-shard AND: each pick's least verdict over this launch's
+  // window and the other shards' columns.
+  if (in.n_and > 0) {
+    __syncthreads();
+    const int picks = in.b * in.p;
+    for (int q = tid; q < picks; q += THREADS) {
+      float v = out[(size_t)q * FUSED_PACKED_WIDTH + VERIFIED_COL];
+      for (int s = 0; s < in.n_and; ++s)
+        v = fminf(v, in.and_with[(size_t)s * picks + q]);
+      out[(size_t)q * FUSED_PACKED_WIDTH + VERIFIED_COL] = v;
+    }
+  }
 }
 
 // The launch plan for these sizes: out[0] tier, [1] passes, [2] digit
@@ -520,21 +546,24 @@ extern "C" int nomad_allocs_fit_verify(const float* totals, const float* used,
                                        const int32_t* delta_rows,
                                        const float* delta_vals,
                                        const uint8_t* lane_mask, float* out,
-                                       int32_t* scratch, int n, int b, int p,
-                                       int d, cudaStream_t stream) {
-  if (n <= 0 || b <= 0 || p <= 0 || d < 0) return (int)cudaErrorInvalidValue;
+                                       int32_t* scratch, const float* and_with,
+                                       int n, int b, int p, int d,
+                                       int row_offset, int n_and,
+                                       cudaStream_t stream) {
+  if (n <= 0 || b <= 0 || p <= 0 || d < 0 || row_offset < 0 || n_and < 0 ||
+      (n_and > 0 && and_with == nullptr))
+    return (int)cudaErrorInvalidValue;
   const VerifyPlan pl = plan_of(n, b, p, d);
   if (pl.tier == 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        allocs_fit_verify_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  static bool configured[NOMAD_MAX_DEVICES];
+  {
+    const cudaError_t err = nomad_smem_once(
+        configured, allocs_fit_verify_kernel<true>, SMEM_LIMIT);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
   }
-  Inputs in{totals, used, packed, req_f, delta_rows, delta_vals, lane_mask,
-            n, b, p, d};
+  Inputs in{totals,     used,  packed, req_f,      delta_rows, delta_vals,
+            lane_mask,  and_with, n,   b,          p,          d,
+            row_offset, n_and};
   if (pl.tier == 0)
     allocs_fit_verify_kernel<true><<<1, THREADS, (size_t)pl.smem, stream>>>(
         in, out, nullptr, pl.passes, pl.digit_bits);

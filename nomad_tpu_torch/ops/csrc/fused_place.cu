@@ -67,6 +67,7 @@
 
 #include "feasibility.cuh"
 #include "layout.cuh"
+#include "per_device.cuh"
 #include "scoring.cuh"
 
 namespace cg = cooperative_groups;
@@ -555,16 +556,7 @@ struct FPShape {
   size_t smem, scratch_cta;
 };
 
-static int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+static int sm_count() { return nomad_sm_count(); }
 
 static size_t cand_bytes_of(int tier) {
   return tier == 0 ? cand_bytes<WidthsBench>() : cand_bytes<WidthsFull>();
@@ -601,13 +593,11 @@ static FPShape fp_shape(int n, int b, int d, int p, int tier) {
 
 template <class W>
 static int launch(const FPParams& P, const FPShape& sh, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_place_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        FP_SMEM_BUDGET);
+  static bool attr_set[NOMAD_MAX_DEVICES];
+  {
+    const cudaError_t e =
+        nomad_smem_once(attr_set, fused_place_kernel<W>, FP_SMEM_BUDGET);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
   }
   if (sh.smem > FP_SMEM_BUDGET) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};

@@ -67,6 +67,7 @@
 
 #include "feasibility.cuh"
 #include "layout.cuh"
+#include "per_device.cuh"
 #include "scoring.cuh"
 
 namespace cg = cooperative_groups;
@@ -606,16 +607,7 @@ struct SBShape {
   size_t smem;
 };
 
-static int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+static int sm_count() { return nomad_sm_count(); }
 
 static size_t lane_bytes(int tier) {
   return tier == 0 ? sizeof(SBLane<WidthsBench>) : sizeof(SBLane<WidthsFull>);
@@ -644,13 +636,12 @@ static SBShape sb_shape(int n, int b, int tier) {
 
 template <class W>
 static int launch(const SBParams& P, const SBShape& sh, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        score_batch_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sb_smem_bytes(sizeof(SBLane<W>), 16));
+  static bool attr_set[NOMAD_MAX_DEVICES];
+  {
+    const cudaError_t e =
+        nomad_smem_once(attr_set, score_batch_kernel<W>,
+                        (int)sb_smem_bytes(sizeof(SBLane<W>), 16));
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(sh.s, sh.tiles, 1);

@@ -20,15 +20,17 @@ a loop inside each lane's thread-block cluster on the card
 (``csrc/fused_place.cu``).
 
 On a CPU tensor the wrappers :func:`fused_place`,
-:func:`allocs_fit_verify`, :func:`system_feasible`, :func:`score_batch`
-and :func:`verify_plan_fit` run the plain version; on a CUDA tensor they
-launch the hand-written kernel or raise.
+:func:`allocs_fit_verify`, :func:`system_feasible`, :func:`score_batch`,
+:func:`verify_plan_fit` and :func:`sharded_place` run the plain version;
+on a CUDA tensor they launch the hand-written kernel, on that tensor's
+card, or raise.
 Sums over the small slot axes are written as ordered loops so the plain
 version, the kernel and XLA add in the same order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import weakref
 from typing import NamedTuple, Optional, Tuple
@@ -694,25 +696,29 @@ def _pick(res: ScoreResult, eligible, live=None):
     return packed, row, ok
 
 
-def lane_base_usage(used, delta_rows, delta_vals):
+def lane_base_usage(used, delta_rows, delta_vals, row_offset: int = 0):
     """(B, N, 3) — each lane's base usage: ``used`` plus its ≤ D sparse
     in-flight deltas (row -1 = padding).  Duplicate rows sum, in delta
-    order, as ``.at[].add`` does."""
+    order, as ``.at[].add`` does.  ``used`` may be one node shard's rows
+    from global row ``row_offset`` on (the deltas' rows stay global)."""
     base = used[None].repeat(delta_rows.shape[0], 1, 1)
-    _add_deltas_in_order(base, delta_rows, delta_vals)
+    _add_deltas_in_order(base, delta_rows, delta_vals, row_offset=row_offset)
     return base
 
 
-def _add_deltas_in_order(target, delta_rows, delta_vals, lane=None) -> None:
+def _add_deltas_in_order(target, delta_rows, delta_vals, lane=None,
+                         row_offset: int = 0) -> None:
     """Add each live delta row into ``target`` ((B, N, 3), or (N, 3) for
     one ``lane``) one at a time, in delta order — a fixed summation order
-    where ``index_add_`` on the card would use atomics."""
+    where ``index_add_`` on the card would use atomics.  ``target`` holds
+    the global rows ``[row_offset, row_offset + N)``; deltas outside them
+    are skipped."""
     n = target.shape[-2]
     lanes = range(delta_rows.shape[0]) if lane is None else [lane]
     for ln in lanes:
         for j in torch.nonzero(delta_rows[ln] >= 0).flatten().tolist():
-            r = int(delta_rows[ln, j])
-            if r < n:
+            r = int(delta_rows[ln, j]) - row_offset
+            if 0 <= r < n:
                 dst = target[ln] if lane is None else target
                 dst[r] += delta_vals[ln, j]
 
@@ -754,7 +760,7 @@ place_lanes.calls = 0
 
 
 def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
-                 lane_mask):
+                 lane_mask, row_offset: int = 0, and_with=None):
     """Plain version of the ``allocs_fit_verify`` kernel: the sequential
     cross-lane AllocsFit scan plus the dead-lane pack.
 
@@ -763,7 +769,13 @@ def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
     ``u[row] <= totals[row]`` on all three dimensions.  Returns the
     (B, P, FUSED_PACKED_WIDTH) output: columns 0-6 from ``packed`` (dead
     lanes row -1, zeros), column 7 the verdict (-1.0 on dead lanes, 1.0 on
-    a pick with no row: row < 0 or >= N)."""
+    a pick with no row in the window).
+
+    The window: ``totals``/``used`` hold the global rows ``[row_offset,
+    row_offset + N)`` (one node shard's; rows in ``packed`` and the deltas
+    stay global), and a pick outside them fits vacuously.  ``and_with``
+    ((S', B, P) float32, the other shards' verdict columns) is folded in
+    last, each pick's least verdict: the cross-shard AND."""
     verify_lanes.calls += 1
     b, p, n = packed.shape[0], packed.shape[1], used.shape[0]
     ask = req_f[:, REQ_FLOAT_OFF["ask"][0]:REQ_FLOAT_OFF["ask"][0] + 3]
@@ -777,9 +789,10 @@ def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
             out[lane, :, PACKED_ROW] = -1.0
             out[lane, :, FUSED_PACKED_VERIFIED] = -1.0
             continue
-        _add_deltas_in_order(cum, delta_rows, delta_vals, lane=lane)
+        _add_deltas_in_order(cum, delta_rows, delta_vals, lane=lane,
+                             row_offset=row_offset)
         for step in range(p):
-            r = int(packed[lane, step, PACKED_ROW])
+            r = int(packed[lane, step, PACKED_ROW]) - row_offset
             if r < 0 or r >= n:
                 out[lane, step, FUSED_PACKED_VERIFIED] = 1.0
                 continue
@@ -787,6 +800,10 @@ def verify_lanes(totals, used, packed, req_f, delta_rows, delta_vals,
             out[lane, step, FUSED_PACKED_VERIFIED] = float(
                 bool((cum[r] <= totals[r]).all())
             )
+    if and_with is not None:
+        for cols in and_with:
+            out[:, :, FUSED_PACKED_VERIFIED] = torch.minimum(
+                out[:, :, FUSED_PACKED_VERIFIED], cols)
     return out
 
 
@@ -811,13 +828,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-# (weak references to the columns, device, rows, the columns' pointers as
-# a ctypes array) of the matrix _check_matrix last passed: a DeviceArrays
-# is immutable and the dispatch loops pass the same one again and again,
-# so its twelve column checks run once per set of columns.  Weak
+# Entries (weak references to the columns, device, rows, the columns'
+# pointers as a ctypes array) of the matrices _check_matrix passed, the
+# newest first: a DeviceArrays is immutable and the dispatch loops pass
+# the same ones again and again (one per node shard on the sharded path),
+# so their twelve column checks run once per set of columns.  Weak
 # references let a replaced matrix be freed (a dead one matches no
-# tensor); one tuple, read once, so threads see a whole entry.
-_checked_matrix = ((), None, 0, None)
+# tensor); the tuple is replaced whole, so threads see whole entries.
+_checked_matrices: tuple = ()
+_MEMO_ENTRIES = 32
 
 
 def _check_matrix(arrays: DeviceArrays, used, device) -> int:
@@ -828,13 +847,14 @@ def _checked_cols(arrays: DeviceArrays, used, device):
     """(rows, the columns' device pointers as a ctypes array in
     DeviceArrays order) of a matrix whose columns and ``used`` pass the
     checks; raises otherwise."""
-    global _checked_matrix
+    global _checked_matrices
     n = arrays.totals.shape[0]
     _check("used", used, torch.float32, (n, 3), device)
-    memo = _checked_matrix
-    if (memo[1] == device and len(memo[0]) == len(arrays)
-            and all(r() is t for r, t in zip(memo[0], arrays))):
-        return memo[2], memo[3]
+    memos = _checked_matrices
+    for memo in memos:
+        if (memo[1] == device and len(memo[0]) == len(arrays)
+                and all(r() is t for r, t in zip(memo[0], arrays))):
+            return memo[2], memo[3]
     a = arrays.attr_hash.shape[1]
     f32, i32 = torch.float32, torch.int32
     _check("totals", arrays.totals, f32, (n, 3), device)
@@ -850,7 +870,9 @@ def _checked_cols(arrays: DeviceArrays, used, device):
            (n, arrays.port_words.shape[1]), device)
     _check("dyn_used", arrays.dyn_used, i32, (n,), device)
     cols = (ctypes.c_void_p * len(arrays))(*[t.data_ptr() for t in arrays])
-    _checked_matrix = (tuple(weakref.ref(t) for t in arrays), device, n, cols)
+    entry = (tuple(weakref.ref(t) for t in arrays), device, n, cols)
+    live = tuple(m for m in memos if m[0] and m[0][0]() is not None)
+    _checked_matrices = (entry,) + live[:_MEMO_ENTRIES - 1]
     return n, cols
 
 
@@ -878,6 +900,22 @@ def _stream(device) -> int:
     if _raw_stream is not None:
         return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# The current card's index without a Python device object; absent from
+# CPU-only builds.
+_current_index = getattr(torch._C, "_cuda_getDevice", None)
+_SAME_CARD = contextlib.nullcontext()
+
+
+def _on(device):
+    """``device``'s card made current for a launch: the ``ctypes``
+    launches run on the current device, and a kernel's one-time
+    attributes are set per device.  No switch when it is current already
+    (the one-card path)."""
+    if _current_index is not None and _current_index() == device.index:
+        return _SAME_CARD
+    return torch.cuda.device(device)
 
 
 _shapes: dict = {}
@@ -956,26 +994,31 @@ def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
     from .build import load_library
 
     lib = load_library("fused_place")
-    shape = fused_place_shape(n, b, d, n_placements, features)
     out = torch.empty((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
-    # Candidate state that does not fit a CTA's shared memory lives in a
-    # per-CTA device scratch (large N); none at the main path's sizes.
-    scratch = None
-    if not shape["state_in_smem"]:
-        scratch = torch.empty((b * shape["cluster"] * shape["scratch_cta"],),
-                              dtype=torch.uint8, device=dev)
-    rc = lib.nomad_fused_place(
-        *_matrix_ptrs(arrays, used),
-        delta_rows.data_ptr(), delta_vals.data_ptr(), tg_counts.data_ptr(),
-        spread_counts.data_ptr(), penalties.data_ptr(), req_i.data_ptr(),
-        req_f.data_ptr(), class_eligs.data_ptr(), host_masks.data_ptr(),
-        lane_mask.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, d, k,
-        n_placements, features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports), _stream(dev),
-    )
+    with _on(dev):
+        shape = fused_place_shape(n, b, d, n_placements, features)
+        # Candidate state that does not fit a CTA's shared memory lives in
+        # a per-CTA device scratch (large N); none at the main path's
+        # sizes.
+        scratch = None
+        if not shape["state_in_smem"]:
+            scratch = torch.empty(
+                (b * shape["cluster"] * shape["scratch_cta"],),
+                dtype=torch.uint8, device=dev)
+        rc = lib.nomad_fused_place(
+            *_matrix_ptrs(arrays, used),
+            delta_rows.data_ptr(), delta_vals.data_ptr(),
+            tg_counts.data_ptr(), spread_counts.data_ptr(),
+            penalties.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
+            class_eligs.data_ptr(), host_masks.data_ptr(),
+            lane_mask.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, d,
+            k, n_placements, features.c_width, features.a_width,
+            features.s_width, int(features.preempt), int(features.ports),
+            _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
@@ -1080,15 +1123,25 @@ def allocs_fit_verify_shape(n: int, b: int, p: int, d: int) -> dict:
 
 
 def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
-                      lane_mask):
+                      lane_mask, row_offset: Optional[int] = None,
+                      and_with=None):
     """The sequential cross-lane AllocsFit scan and the dead-lane pack —
     the ``allocs_fit_verify`` kernel (``csrc/allocs_fit_verify.cu``, a
     row-segmented scan) on the card, :func:`verify_lanes` on the CPU.
-    Returns (B, P, FUSED_PACKED_WIDTH) f32."""
+    Returns (B, P, FUSED_PACKED_WIDTH) f32.
+
+    With ``row_offset`` the launch is the windowed one of the node-sharded
+    verify: ``totals``/``used`` are one shard's rows from global row
+    ``row_offset`` on, picks outside them fit vacuously, and ``and_with``
+    ((S', B, P) f32, or None) holds the other shards' verdict columns,
+    which the kernel folds in last (their least verdict).  Those launches
+    count in ``allocs_fit_verify.window_launches``, the unsharded ones in
+    ``allocs_fit_verify.launches``."""
     dev = used.device
+    windowed = row_offset is not None
     if dev.type == "cpu":
         return verify_lanes(totals, used, packed, req_f, delta_rows,
-                            delta_vals, lane_mask)
+                            delta_vals, lane_mask, row_offset or 0, and_with)
     if dev.type != "cuda":
         raise ValueError(f"allocs_fit_verify: unsupported device {dev}")
     n = totals.shape[0]
@@ -1101,6 +1154,12 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
     _check("delta_rows", delta_rows, torch.int32, (b, d), dev)
     _check("delta_vals", delta_vals, torch.float32, (b, d, 3), dev)
     _check("lane_mask", lane_mask, torch.bool, (b,), dev)
+    n_and = 0
+    if and_with is not None:
+        n_and = and_with.shape[0]
+        _check("and_with", and_with, torch.float32, (n_and, b, p), dev)
+    if row_offset is not None and row_offset < 0:
+        raise ValueError("row_offset must be >= 0")
     from .build import load_library
 
     lib = load_library("allocs_fit_verify")
@@ -1109,24 +1168,30 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
     # Event arrays past the shared-memory tier live in a device scratch;
     # none at the main path's sizes.
     plan = allocs_fit_verify_shape(n, b, p, d)
-    scratch = None
-    if plan["tier"]:
-        scratch = torch.empty((plan["scratch"] // 4,), dtype=torch.int32,
-                              device=dev)
-    rc = lib.nomad_allocs_fit_verify(
-        totals.data_ptr(), used.data_ptr(), packed.data_ptr(),
-        req_f.data_ptr(), delta_rows.data_ptr(), delta_vals.data_ptr(),
-        lane_mask.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), n, b, p, d,
-        _stream(dev),
-    )
+    with _on(dev):
+        scratch = None
+        if plan["tier"]:
+            scratch = torch.empty((plan["scratch"] // 4,), dtype=torch.int32,
+                                  device=dev)
+        rc = lib.nomad_allocs_fit_verify(
+            totals.data_ptr(), used.data_ptr(), packed.data_ptr(),
+            req_f.data_ptr(), delta_rows.data_ptr(), delta_vals.data_ptr(),
+            lane_mask.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if and_with is None else and_with.data_ptr(), n, b, p, d,
+            row_offset or 0, n_and, _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"allocs_fit_verify launch failed: CUDA error {rc}")
-    allocs_fit_verify.launches += 1
+    if windowed:
+        allocs_fit_verify.window_launches += 1
+    else:
+        allocs_fit_verify.launches += 1
     return out
 
 
 allocs_fit_verify.launches = 0
+allocs_fit_verify.window_launches = 0
 
 
 def system_feasible_plain(arrays: DeviceArrays, used0, req_i, req_f,
@@ -1170,12 +1235,13 @@ def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
 
     lib = load_library("system_feasible")
     out = torch.empty((2, n), dtype=torch.bool, device=dev)
-    rc = lib.nomad_system_feasible(
-        cols, used0.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
-        class_elig.data_ptr(), host_mask.data_ptr(), out.data_ptr(), n,
-        arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
-        _stream(dev),
-    )
+    with _on(dev):
+        rc = lib.nomad_system_feasible(
+            cols, used0.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
+            class_elig.data_ptr(), host_mask.data_ptr(), out.data_ptr(), n,
+            arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
+            _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"system_feasible launch failed: CUDA error {rc}")
     system_feasible.launches += 1
@@ -1280,15 +1346,17 @@ def score_batch(arrays: DeviceArrays, used, tg_counts, spread_counts,
     # flags as (B,) bytes of 0 or 1.
     out = torch.empty((6, b), dtype=torch.int32, device=dev)
     pre = torch.empty((b,), dtype=torch.bool, device=dev)
-    rc = lib.nomad_score_batch(
-        *_matrix_ptrs(arrays, used),
-        tg_counts.data_ptr(), spread_counts.data_ptr(), penalties.data_ptr(),
-        req_i.data_ptr(), req_f.data_ptr(), class_eligs.data_ptr(),
-        host_masks.data_ptr(), out.data_ptr(), pre.data_ptr(),
-        n, arrays.attr_hash.shape[1], arrays.port_words.shape[1], b, k,
-        features.c_width, features.a_width, features.s_width,
-        int(features.preempt), int(features.ports), _stream(dev),
-    )
+    with _on(dev):
+        rc = lib.nomad_score_batch(
+            *_matrix_ptrs(arrays, used),
+            tg_counts.data_ptr(), spread_counts.data_ptr(),
+            penalties.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
+            class_eligs.data_ptr(), host_masks.data_ptr(), out.data_ptr(),
+            pre.data_ptr(), n, arrays.attr_hash.shape[1],
+            arrays.port_words.shape[1], b, k, features.c_width,
+            features.a_width, features.s_width, int(features.preempt),
+            int(features.ports), _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"score_batch launch failed: CUDA error {rc}")
     score_batch.launches += 1
@@ -1345,11 +1413,12 @@ def verify_plan_fit(arrays, rows, deltas, eligible_required):
 
     lib = load_library("verify_plan_fit")
     out = torch.empty((k,), dtype=torch.bool, device=dev)
-    rc = lib.nomad_verify_plan_fit(
-        _ptr(arrays.used), _ptr(arrays.totals), _ptr(arrays.eligible),
-        _ptr(rows), _ptr(deltas), _ptr(eligible_required), _ptr(out),
-        k, n, _stream(dev),
-    )
+    with _on(dev):
+        rc = lib.nomad_verify_plan_fit(
+            _ptr(arrays.used), _ptr(arrays.totals), _ptr(arrays.eligible),
+            _ptr(rows), _ptr(deltas), _ptr(eligible_required), _ptr(out),
+            k, n, _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"verify_plan_fit launch failed: CUDA error {rc}")
     verify_plan_fit.launches += 1
@@ -1359,12 +1428,349 @@ def verify_plan_fit(arrays, rows, deltas, eligible_required):
 verify_plan_fit.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The node-sharded placement scan (K9)
+# ---------------------------------------------------------------------------
+
+# Words of one shard's offer in the candidate table (csrc/sharded_place.cu
+# OFFER_WORDS): score bits, global row, binpack bits, preemption, the three
+# counters, the best row's value hash per spread stanza, padding.
+OFFER_WORDS = 12
+_NO_ROW = 0x7FFFFFFF
+
+
+class ShardLanes(NamedTuple):
+    """One node shard's operands for :func:`sharded_place`, all on the
+    shard's device: its matrix rows (``arrays``, global rows
+    ``[row_offset, row_offset + n)``) and its lanes' inputs, the node-axis
+    ones (``tg_counts``, ``penalties``, ``host_masks``) cut to its rows.
+    Delta rows stay global."""
+
+    arrays: DeviceArrays
+    row_offset: int
+    delta_rows: torch.Tensor  # (B, D) i32
+    delta_vals: torch.Tensor  # (B, D, 3) f32
+    tg_counts: torch.Tensor  # (B, n) i32
+    spread_counts: torch.Tensor  # (B, S, V) f32
+    penalties: torch.Tensor  # (B, n) bool
+    req_i: torch.Tensor  # (B, REQ_INT_WIDTH) i32
+    req_f: torch.Tensor  # (B, REQ_FLOAT_WIDTH) f32
+    class_eligs: torch.Tensor  # (B, K) bool
+    host_masks: torch.Tensor  # (B, n) bool
+    lane_mask: torch.Tensor  # (B,) bool
+
+
+def _shard_offers(res: ScoreResult, eligible, row_offset: int):
+    """One shard's offers for a step (the plain ``sharded_place`` body):
+    per lane the first maximum of its rows' scores (lowest row on ties),
+    the global row, binpack and preemption there, and the three node
+    counters over its rows."""
+    row = torch.argmax(res.final, dim=1)
+    take = row[:, None]
+    return dict(
+        val=res.final.gather(1, take)[:, 0],
+        row=row + row_offset,
+        local=row,
+        bin=res.binpack.gather(1, take)[:, 0],
+        pre=res.needs_preempt.gather(1, take)[:, 0],
+        c0=res.feasible.sum(dim=1),
+        c1=(~res.feasible & eligible[None]).sum(dim=1),
+        c2=(res.feasible & ~res.fits).sum(dim=1),
+    )
+
+
+def sharded_place_plain(row_shards, n_placements: int,
+                        features: Features = FULL_FEATURES):
+    """Plain version of the ``sharded_place`` kernel for one batch row of
+    node shards (a list of :class:`ShardLanes` on the CPU): each step
+    every shard scores its rows and offers its best, and every shard
+    reduces the offers in shard order (highest score, then the lowest
+    global row; counters summed); the winner's owner applies the ask and
+    the tg count, every shard the winner's spread values.  Returns (B,
+    n_placements, PACKED_WIDTH) f32; dead lanes read row -1 and zeros."""
+    sharded_place_plain.calls += 1
+    f32 = torch.float32
+    head = row_shards[0]
+    req = unpack_requests(head.req_i, head.req_f)
+    b = head.req_i.shape[0]
+    dev = head.req_i.device
+    live = head.lane_mask.clone()
+    out = torch.zeros((b, n_placements, PACKED_WIDTH), dtype=f32, device=dev)
+    # The lane tables live on the first shard's device; each shard scores
+    # on its own with its own copy of the request.
+    s_hash = req.s_value_hash.clone()
+    s_counts = head.spread_counts.to(f32).clone()
+    state = []
+    for sh in row_shards:
+        req_s = unpack_requests(sh.req_i, sh.req_f)
+        state.append(dict(
+            req=req_s,
+            u=lane_base_usage(sh.arrays.used, sh.delta_rows, sh.delta_vals,
+                              sh.row_offset),
+            tg=sh.tg_counts.to(torch.int32).clone(),
+            sp=_static_parts(sh.arrays, req_s, sh.penalties, sh.class_eligs,
+                             sh.host_masks, features),
+        ))
+    for step in range(n_placements):
+        offers = []
+        for sh, stt in zip(row_shards, state):
+            d = sh.arrays.used.device
+            res = _score_step(sh.arrays, stt["req"], stt["sp"], stt["u"],
+                              stt["tg"], s_hash.to(d), s_counts.to(d),
+                              features)
+            offers.append({key: v.to(dev) for key, v in _shard_offers(
+                res, sh.arrays.eligible, sh.row_offset).items()})
+        for lane in torch.nonzero(live).flatten().tolist():
+            win, c = 0, [0, 0, 0]
+            for s, o in enumerate(offers):
+                v, r = float(o["val"][lane]), int(o["row"][lane])
+                w = offers[win]
+                if s == 0 or v > float(w["val"][lane]) or (
+                        v == float(w["val"][lane])
+                        and r < int(w["row"][lane])):
+                    win = s
+                c[0] += int(o["c0"][lane])
+                c[1] += int(o["c1"][lane])
+                c[2] += int(o["c2"][lane])
+            w = offers[win]
+            best = w["val"][lane]
+            ok = bool(best > NEG_INF / 2)
+            out[lane, step] = torch.tensor([
+                float(w["row"][lane]) if ok else -1.0,
+                float(best) if ok else 0.0,
+                float(w["bin"][lane]) if ok else 0.0,
+                float(ok and bool(w["pre"][lane])),
+                c[0], c[1], c[2],
+            ], dtype=f32, device=dev)
+            if not ok:
+                continue
+            r = int(w["local"][lane])
+            owner = state[win]
+            owner["u"][lane, r] += owner["req"].ask[lane]
+            owner["tg"][lane, r] += 1
+            if features.s_width:
+                nvalues = row_shards[win].arrays.attr_hash[
+                    r, owner["req"].s_slot[lane].clamp(min=0).long()]
+                _apply_spread_values(req, lane, s_hash, s_counts, nvalues)
+    dead = ~live
+    out[dead] = 0.0
+    out[dead, :, PACKED_ROW] = -1.0
+    return out
+
+
+sharded_place_plain.calls = 0
+
+
+def _check_shard(name: str, sh: ShardLanes, b: int, d: int, k: int):
+    """Check one shard's operands; returns its rows."""
+    dev = sh.arrays.used.device
+    n = _check_matrix(sh.arrays, sh.arrays.used, dev)
+    _check(f"{name}.delta_rows", sh.delta_rows, torch.int32, (b, d), dev)
+    _check(f"{name}.delta_vals", sh.delta_vals, torch.float32, (b, d, 3), dev)
+    _check(f"{name}.tg_counts", sh.tg_counts, torch.int32, (b, n), dev)
+    _check(f"{name}.spread_counts", sh.spread_counts, torch.float32,
+           (b, MAX_SPREADS, MAX_SPREAD_VALUES), dev)
+    _check(f"{name}.penalties", sh.penalties, torch.bool, (b, n), dev)
+    _check(f"{name}.req_i", sh.req_i, torch.int32, (b, REQ_INT_WIDTH), dev)
+    _check(f"{name}.req_f", sh.req_f, torch.float32, (b, REQ_FLOAT_WIDTH), dev)
+    _check(f"{name}.class_eligs", sh.class_eligs, torch.bool, (b, k), dev)
+    _check(f"{name}.host_masks", sh.host_masks, torch.bool, (b, n), dev)
+    _check(f"{name}.lane_mask", sh.lane_mask, torch.bool, (b,), dev)
+    if sh.row_offset < 0:
+        raise ValueError(f"{name}: row_offset must be >= 0")
+    return n
+
+
+def sharded_place(groups, n_placements: int,
+                  features: Features = FULL_FEATURES):
+    """The node-sharded placement scan — the ``sharded_place`` kernel
+    (``csrc/sharded_place.cu``) on the cards, :func:`sharded_place_plain`
+    on the CPU.  ``groups`` is one list of :class:`ShardLanes` per batch
+    row (the node shards of that row, in row order, all of one device
+    type).  Returns one (B_row, n_placements, PACKED_WIDTH) f32 tensor per
+    batch row, on the device of that row's first shard.
+
+    On the cards every shard runs ``n_placements + 1`` launches on its
+    own device's current stream.  After each launch it copies its offers
+    into the candidate tables of the other node shards of its row (one
+    table per shard, even where two shards share a card) and records an
+    event; a shard's next launch waits on the events of the others.  The
+    row's first shard waits, last, on the others' final launches, so work
+    queued there after this call sees the whole dispatch done."""
+    devs = {sh.arrays.used.device.type for row in groups for sh in row}
+    if len(devs) != 1:
+        raise ValueError(f"sharded_place: mixed device types {sorted(devs)}")
+    if devs == {"cpu"}:
+        for row in groups:
+            _check_delta_width("sharded_place", row[0].delta_rows)
+        return [sharded_place_plain(row, n_placements, features)
+                for row in groups]
+    if devs != {"cuda"}:
+        raise ValueError(f"sharded_place: unsupported device {devs}")
+    if not 1 <= n_placements <= 64:
+        raise ValueError("n_placements must be in [1, 64]")
+    from .build import load_library
+
+    lib = load_library("sharded_place")
+    runs = []
+    for row in groups:
+        head = row[0]
+        b, d = head.delta_rows.shape
+        k = head.class_eligs.shape[1]
+        _check_delta_width("sharded_place", head.delta_rows)
+        n_sh = len(row)
+        shards = []
+        for si, sh in enumerate(row):
+            dev = sh.arrays.used.device
+            n = _check_shard(f"shard {si}", sh, b, d, k)
+            buf = (ctypes.c_longlong * 2)()
+            lib.nomad_sharded_place_shape(n, d, n_placements, buf)
+            with _on(dev):
+                table = torch.empty((2, n_sh, b, OFFER_WORDS),
+                                    dtype=torch.int32, device=dev)
+                state = torch.empty((b, int(buf[0])), dtype=torch.int32,
+                                    device=dev)
+                out = torch.empty((b, n_placements, PACKED_WIDTH),
+                                  dtype=torch.float32, device=dev)
+            a = sh.arrays
+            head_args = (*_matrix_ptrs(a, a.used),
+                         sh.delta_rows.data_ptr(), sh.delta_vals.data_ptr(),
+                         sh.tg_counts.data_ptr(),
+                         sh.spread_counts.data_ptr(),
+                         sh.penalties.data_ptr(), sh.req_i.data_ptr(),
+                         sh.req_f.data_ptr(), sh.class_eligs.data_ptr(),
+                         sh.host_masks.data_ptr(), sh.lane_mask.data_ptr(),
+                         table.data_ptr(), state.data_ptr(), out.data_ptr(),
+                         n, a.attr_hash.shape[1], a.port_words.shape[1],
+                         sh.row_offset, b, d, k, n_placements, n_sh, si)
+            tail_args = (features.c_width, features.a_width,
+                         features.s_width, int(features.preempt),
+                         int(features.ports))
+            shards.append(dict(dev=dev, table=table, state=state, out=out,
+                               head=head_args, tail=tail_args, event=None))
+        runs.append(shards)
+    for step in range(n_placements + 1):
+        for shards in runs:
+            for si, shd in enumerate(shards):
+                with _on(shd["dev"]):
+                    stream = torch.cuda.current_stream(shd["dev"])
+                    for sj, other in enumerate(shards):
+                        if sj != si and other["event"] is not None:
+                            stream.wait_event(other["event"])
+                    rc = lib.nomad_sharded_place(
+                        *shd["head"], step, *shd["tail"],
+                        _stream(shd["dev"]))
+                if rc != 0:
+                    raise RuntimeError(
+                        f"sharded_place launch failed: CUDA error {rc}")
+                sharded_place.launches += 1
+        for shards in runs:
+            for si, shd in enumerate(shards):
+                with _on(shd["dev"]):
+                    if step < n_placements:
+                        # The exchange: this shard's offers into the
+                        # other shards' tables (a peer copy between
+                        # cards, a device copy on one).
+                        src = shd["table"][step & 1, si]
+                        for sj, other in enumerate(shards):
+                            if sj != si:
+                                other["table"][step & 1, si].copy_(
+                                    src, non_blocking=True)
+                                sharded_place.copies += 1
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(shd["dev"]))
+                    shd["event"] = ev
+    outs = []
+    for shards in runs:
+        lead = shards[0]
+        with _on(lead["dev"]):
+            stream = torch.cuda.current_stream(lead["dev"])
+            for other in shards[1:]:
+                stream.wait_event(other["event"])
+        outs.append(lead["out"])
+    return outs
+
+
+sharded_place.launches = 0
+# Offer copies between shards' tables (the exchange; data movement).
+sharded_place.copies = 0
+
+
+def sharded_usage_plain(used, packed, req_f, n_batch: int,
+                        row_offset: int = 0):
+    """Plain version of the ``sharded_usage`` kernel: ``used`` (one
+    shard's (n, 3) rows from global row ``row_offset`` on) plus every
+    pick's ask, the picks being step 0's rows of the gathered (B, P,
+    PACKED_WIDTH) result ``packed`` and the asks ``req_f``'s.  Each batch
+    row's part sums its lanes' asks in lane order; the parts add up in
+    batch-row order (the reference's scatter, then ``psum`` over
+    ``batch``)."""
+    sharded_usage_plain.calls += 1
+    n = used.shape[0]
+    b = packed.shape[0]
+    per = b // n_batch
+    rows = (packed[:, 0, PACKED_ROW].to(torch.int64) - row_offset).tolist()
+    off = REQ_FLOAT_OFF["ask"][0]
+    asks = req_f[:, off:off + 3].to(used.device)
+    delta = torch.zeros_like(used)
+    for i in range(n_batch):
+        part = torch.zeros_like(used)
+        for lane in range(i * per, (i + 1) * per):
+            if 0 <= rows[lane] < n:
+                part[rows[lane]] += asks[lane]
+        delta = delta + part
+    return used + delta
+
+
+sharded_usage_plain.calls = 0
+
+
+def sharded_usage(used, packed, req_f, n_batch: int, row_offset: int = 0):
+    """The sharded step's usage update on one node shard — the
+    ``sharded_usage`` kernel (``csrc/sharded_place.cu``) on the card,
+    :func:`sharded_usage_plain` on the CPU.  Every operand lies on the
+    shard's device; returns a new (n, 3) f32 tensor there."""
+    dev = used.device
+    if dev.type == "cpu":
+        return sharded_usage_plain(used, packed, req_f, n_batch, row_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"sharded_usage: unsupported device {dev}")
+    n = used.shape[0]
+    b, p = packed.shape[0], packed.shape[1]
+    _check("used", used, torch.float32, (n, 3), dev)
+    _check("packed", packed, torch.float32, (b, p, PACKED_WIDTH), dev)
+    _check("req_f", req_f, torch.float32, (b, REQ_FLOAT_WIDTH), dev)
+    if n_batch < 1 or b % n_batch or row_offset < 0:
+        raise ValueError("sharded_usage: bad n_batch or row_offset")
+    from .build import load_library
+
+    lib = load_library("sharded_place")
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    with _on(dev):
+        rc = lib.nomad_sharded_usage(
+            used.data_ptr(), packed.data_ptr(), req_f.data_ptr(),
+            out.data_ptr(), n, row_offset, b, p, n_batch, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"sharded_usage launch failed: CUDA error {rc}")
+    sharded_usage.launches += 1
+    return out
+
+
+sharded_usage.launches = 0
+
+
 def reset_counts() -> None:
     """Zero every launch and call count (the smoke reads them around the
     main path)."""
     fused_place.launches = 0
     place_batch.launches = 0
     allocs_fit_verify.launches = 0
+    allocs_fit_verify.window_launches = 0
+    sharded_place.launches = 0
+    sharded_place.copies = 0
+    sharded_place_plain.calls = 0
+    sharded_usage.launches = 0
+    sharded_usage_plain.calls = 0
     system_feasible.launches = 0
     score_batch.launches = 0
     verify_plan_fit.launches = 0

@@ -1,7 +1,34 @@
-"""Batched-eval input assembly (the port's part of the JAX package's
-``parallel/``).  The node-axis sharding over several cards is not here
-yet; only the helpers that build a batch for ``score_batch``."""
+"""The node-sharded dispatch (the port's part of the JAX package's
+``parallel/``): the cluster matrix's node axis split over an ordered list
+of devices shaped ``('batch', 'node')``, and the batch assembly helpers
+of ``score_batch``."""
 
-from .sharding import build_batch_inputs, stack_requests
+from .sharding import (
+    Mesh,
+    ShardedArrays,
+    TOPK_K,
+    build_batch_inputs,
+    make_mesh,
+    make_sharded_row_scatter,
+    node_shard_count,
+    shard_matrix_arrays,
+    sharded_fused_place_batch,
+    sharded_place_batch,
+    sharded_schedule_step,
+    stack_requests,
+)
 
-__all__ = ["build_batch_inputs", "stack_requests"]
+__all__ = [
+    "Mesh",
+    "ShardedArrays",
+    "TOPK_K",
+    "build_batch_inputs",
+    "make_mesh",
+    "make_sharded_row_scatter",
+    "node_shard_count",
+    "shard_matrix_arrays",
+    "sharded_fused_place_batch",
+    "sharded_place_batch",
+    "sharded_schedule_step",
+    "stack_requests",
+]

@@ -33,6 +33,21 @@ degrades to a host twin instead; on the card that would be a silent
 fallback from the kernel to its plain version, which this package never
 takes.
 
+The node-sharded dispatch (``parallel/``): given more than one device
+(``device=[...]``, or ``n_device_shards`` > 1, or by default every
+visible card when a host has several), the coalescer builds a
+``('batch', 'node')`` mesh once, homes the matrix's rows to its node
+shards (``NodeMatrix.set_shard_count``) and launches
+``parallel.sharded_fused_place_batch`` over the mesh-resident copy
+(``NodeMatrix.sync_sharded``); ``NOMAD_TPU_SHARDED_MEGABATCH=0`` keeps the
+staged ``sharded_place_batch`` instead.  The result is gathered on the
+lead device, whose page-locked copy and event come after every shard's
+last launch, so the resolver's watchdog times the whole dispatch.  A lost
+shard is evacuated (:meth:`DeviceCoalescer.evacuate_shard`): the matrix
+re-lays every row over the surviving shards and the mesh drops the lost
+node shard's devices; a result scored against an older layout maps its
+rows through ``NodeMatrix.translate_rows``.
+
 Because overlapped dispatches read a matrix that plans committed during
 their flight may mutate, each ticket records ``matrix.version`` at launch;
 a mismatch at resolve time counts into ``stale_dispatches``.  Correctness
@@ -62,7 +77,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from ..obs.breaker import (
     STALL_OK,
     STALL_SLOW,
@@ -74,6 +89,7 @@ from ..obs.breaker import (
 )
 from ..ops import kernels
 from ..ops.encode import RequestSlab, SchedRequest
+from ..parallel import sharding
 from ..retry import env_int
 from ..state.matrix import DEVICE_LOCK
 
@@ -85,6 +101,7 @@ MAX_DELTA_ROWS = 32
 
 _DEPTH_ENV = "NOMAD_TPU_PIPELINE_DEPTH"
 _MEGABATCH_ENV = "NOMAD_TPU_MEGABATCH"
+_SHARDED_MEGABATCH_ENV = "NOMAD_TPU_SHARDED_MEGABATCH"
 # How long the stop path waits for the resolver before it fails the
 # queued tickets and the one the resolver is stuck on.
 _JOIN_WINDOW_S = 10.0
@@ -124,6 +141,18 @@ def megabatch_enabled() -> bool:
     masks and the cross-lane AllocsFit verify column).  Default on;
     ``NOMAD_TPU_MEGABATCH=0`` selects the staged ``place_batch`` dispatch."""
     return os.environ.get(_MEGABATCH_ENV, "1").lower() not in (
+        "0", "off", "false",
+    )
+
+
+def sharded_megabatch_enabled() -> bool:
+    """The node-sharded fused dispatch (``parallel.
+    sharded_fused_place_batch``: the ranking scan and the cross-lane
+    AllocsFit verify with the node axis split over the mesh).  Default on
+    when a mesh is configured; ``NOMAD_TPU_SHARDED_MEGABATCH=0`` keeps
+    multi-device dispatches on the staged ``sharded_place_batch`` (no
+    verify column)."""
+    return os.environ.get(_SHARDED_MEGABATCH_ENV, "1").lower() not in (
         "0", "off", "false",
     )
 
@@ -207,11 +236,30 @@ class DeviceCoalescer:
         pipeline_depth: Optional[int] = None,
         metrics=None,
         device="cuda",
+        n_device_shards: Optional[int] = None,
     ):
         from .stack import PLACEMENT_CHUNK
 
         self.matrix = matrix
-        self.device = resolve_device(device)
+        # One device, or an ordered list of them (the node-sharded
+        # dispatch); the list's first device is the lead.
+        self._mesh_devices = sharding.device_list(device)
+        self.device = (self._mesh_devices[0] if self._mesh_devices
+                       else resolve_device(device))
+        if self._mesh_devices and n_device_shards is None:
+            n_device_shards = len(self._mesh_devices)
+        # Devices dispatches span: None = decided at the first dispatch
+        # (every visible card when the host has more than one, else 1).
+        self.n_device_shards = n_device_shards
+        self._mesh: Optional[sharding.Mesh] = None
+        self._sharded_fn = None
+        self._sharded_fused_fn = None
+        self.sharded_megabatch = sharded_megabatch_enabled()
+        self.shard_evacuations = 0
+        self._pre_evac_shards: Optional[int] = None
+        self._pre_evac_device_shards: Optional[int] = None
+        self._pre_evac_devices: Optional[list] = None
+        self._evac_batch: Optional[int] = None
         self.max_lanes = max_lanes
         self.scan_length = scan_length or PLACEMENT_CHUNK
         self.linger_s = linger_s
@@ -540,6 +588,107 @@ class DeviceCoalescer:
 
     # ------------------------------------------------------------------
 
+    def _resolve_sharding(self) -> int:
+        """Decide (once, and again after an evacuation or heal) how many
+        devices dispatches span, and build the mesh and its programs."""
+        if self.n_device_shards is None:
+            count = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
+            self.n_device_shards = count if count > 1 else 1
+        if self.n_device_shards > 1 and self._sharded_fn is None:
+            devs = self._mesh_devices
+            if devs is None:
+                devs = (sharding.visible_devices()
+                        if self.device.type == "cuda"
+                        else [self.device] * self.n_device_shards)
+            # A survivor mesh keeps the first mesh's batch width.
+            self._mesh = sharding.make_mesh(
+                self.n_device_shards, batch=self._evac_batch, devices=devs)
+            self._sharded_fn = sharding.sharded_place_batch(
+                self._mesh, self.scan_length)
+            node_shards = sharding.node_shard_count(self._mesh)
+            if self.megabatch and self.sharded_megabatch:
+                self._sharded_fused_fn = sharding.sharded_fused_place_batch(
+                    self._mesh, self.scan_length)
+            # Home rows to their node shard so claims balance across the
+            # node axis and growth never migrates a row between shards;
+            # not while an evacuation is active (the survivor layout is
+            # the homing).
+            if (node_shards > 1 and self._pre_evac_shards is None
+                    and self.matrix.capacity % node_shards == 0):
+                self.matrix.set_shard_count(node_shards)
+                if self.metrics is not None:
+                    for s in range(node_shards):
+                        self.metrics.gauge_fn(
+                            "nomad.matrix.shard_rows",
+                            lambda s=s: (
+                                self.matrix.shard_row_counts()[s]
+                                if s < self.matrix.shard_count else 0),
+                            shard=s,
+                        )
+            log.info("coalescer: node-sharded dispatch over %r (%s)",
+                     self._mesh,
+                     "fused" if self._sharded_fused_fn else "staged")
+        return self.n_device_shards
+
+    def evacuate_shard(self, shard: int) -> int:
+        """Evacuate a lost node shard: the matrix re-lays every row over
+        the survivors (``NodeMatrix.relayout_shards`` replays the claim
+        policy over the nodes in row order, so the layout equals a
+        from-scratch one on the surviving shards), and the next dispatch
+        builds its mesh without the lost shard's devices.  In-flight
+        tickets scored against the old layout map their rows through the
+        matrix's remap window.  Returns the surviving shard count."""
+        with DEVICE_LOCK:
+            before = int(self.matrix.shard_count)
+            if before <= 1:
+                raise ValueError("evacuation requires shard_count > 1")
+            if self._mesh is None:
+                self._resolve_sharding()
+            mesh = self._mesh
+            if self._pre_evac_shards is None:
+                self._pre_evac_shards = before
+                self._pre_evac_device_shards = self.n_device_shards
+                self._pre_evac_devices = self._mesh_devices
+                self._evac_batch = mesh.shape[0] if mesh is not None else None
+            self.matrix.evacuate_shard(shard)
+            survivors = int(self.matrix.shard_count)
+            if mesh is not None and shard < mesh.shape[1]:
+                self._mesh_devices = [
+                    d for row in mesh.devices
+                    for j, d in enumerate(row) if j != shard]
+                self.n_device_shards = len(self._mesh_devices)
+            self._mesh = None
+            self._sharded_fn = None
+            self._sharded_fused_fn = None
+        self.shard_evacuations += 1
+        self.breaker.note_evacuation()
+        trace.event("coalescer.shard_evacuated", shard=shard,
+                    survivors=survivors)
+        if self.metrics is not None:
+            self.metrics.incr("nomad.coalescer.shard_evacuations")
+        return survivors
+
+    def heal_shard_evacuations(self) -> Optional[int]:
+        """Re-admit evacuated shards: a full re-layout back to the shard
+        count before the first evacuation, through the same remap window,
+        and the first mesh's devices.  Returns the restored shard count,
+        or None when no evacuation is active."""
+        restored = self._pre_evac_shards
+        if restored is None:
+            return None
+        with DEVICE_LOCK:
+            self.matrix.relayout_shards(restored)
+            self._pre_evac_shards = None
+            self.n_device_shards = self._pre_evac_device_shards
+            self._mesh_devices = self._pre_evac_devices
+            self._evac_batch = None
+            self._mesh = None
+            self._sharded_fn = None
+            self._sharded_fused_fn = None
+        trace.event("coalescer.shard_healed", restored=restored)
+        return restored
+
     def _ratchet_features(self, k: int) -> kernels.Features:
         """The occupancy-features ratchet: a monotone widening union, so a
         narrow batch after a wide one keeps the wide loop bounds."""
@@ -580,11 +729,22 @@ class DeviceCoalescer:
         packed result, completion event or None on the CPU, matrix version
         at launch).  The staged dispatch launches the ``k`` live lanes
         only, at full features, as the reference's staged path (no
-        ``features=``)."""
+        ``features=``); its sharded twin launches every lane, the dead
+        ones with all-False host masks, as the reference's does."""
+        sharded = None
         with DEVICE_LOCK:
-            arrays = self.matrix.sync(self.device)
+            if self._resolve_sharding() > 1:
+                # The matrix stays resident across the mesh: only dirty
+                # rows go to the shards that own them.
+                sharded = self.matrix.sync_sharded(self._mesh)
+                fused_fn, staged_fn = self._sharded_fused_fn, self._sharded_fn
+                n = sharded.n
+                dev = sharded.mesh.lead
+            else:
+                arrays = self.matrix.sync(self.device)
+                n = int(arrays.used.shape[0])
+                dev = arrays.used.device
             version = self.matrix.version
-        n = int(arrays.used.shape[0])
 
         k = len(batch)
         cw = max(p.class_elig.shape[0] for p in batch)
@@ -630,25 +790,22 @@ class DeviceCoalescer:
             self._req_slab.fill(i, p.request)
         ri, rf = kernels.pack_requests(self._req_slab.batch())
 
-        dev = arrays.used.device
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            # The operands travel through a page-locked copy, so the upload
-            # only enqueues: from pageable memory an upload of MiBs (the
-            # (lanes, N) tg counts) waits for every launch queued before
-            # it, and a stuck stream would stall this thread outside the
-            # resolver's watchdog.  The copy also frees the staging
-            # buffers for the next dispatch at once; torch's caching host
-            # allocator reuses a page-locked block only after its upload.
-            t = torch.from_numpy(a)
-            if dev.type == "cuda":
-                t = t.pin_memory()
-            return t.to(dev, non_blocking=True)
-
-        if self.megabatch:
+        if sharded is not None:
+            if fused_fn is not None:
+                packed = fused_fn(
+                    sharded, dr, dv, tg, sc, pen, ri, rf, ce, hm, lm,
+                    features=self._ratchet_features(k),
+                )
+                self.fused_dispatches += 1
+                self.fused_lanes += k
+            else:
+                packed = staged_fn(sharded, dr, dv, tg, sc, pen, ri, rf, ce,
+                                   hm)
+        elif self.megabatch:
             packed = kernels.fused_place_batch(
-                arrays, arrays.used, up(dr), up(dv), up(tg), up(sc),
-                up(pen), up(ri), up(rf), up(ce), up(hm), up(lm),
+                arrays, arrays.used,
+                *(upload(a, dev)
+                  for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm, lm)),
                 n_placements=self.scan_length,
                 features=self._ratchet_features(k),
             )
@@ -656,23 +813,27 @@ class DeviceCoalescer:
             self.fused_lanes += k
         else:
             packed = kernels.place_batch(
-                arrays, arrays.used, up(dr[:k]), up(dv[:k]), up(tg[:k]),
-                up(sc[:k]), up(pen[:k]), up(ri[:k]), up(rf[:k]),
-                up(ce[:k]), up(hm[:k]), n_placements=self.scan_length,
+                arrays, arrays.used,
+                *(upload(a[:k], dev)
+                  for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm)),
+                n_placements=self.scan_length,
             )
         if dev.type != "cuda":
             return packed, None, version
         # One ticket, one copy, behind its own kernels only: the copy is
         # enqueued on the stream right after them and the event after the
         # copy, so the resolver's wait covers this dispatch and nothing
-        # launched later.  The page-locked tensor is allocated per ticket:
-        # the outcomes are numpy views of it, and torch's caching host
-        # allocator hands a block out again only after its copy has
-        # completed and its last view is gone.
+        # launched later.  A sharded result lies on the lead device, whose
+        # stream already waits on every shard's last launch.  The
+        # page-locked tensor is allocated per ticket: the outcomes are
+        # numpy views of it, and torch's caching host allocator hands a
+        # block out again only after its copy has completed and its last
+        # view is gone.
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with torch.cuda.device(dev):
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return host, event, version
 
     def _wait_fetch(self, ticket: _Ticket, deadline: float, factor: float):
@@ -747,9 +908,17 @@ class DeviceCoalescer:
             self.stale_dispatches += 1
             trace.event("coalescer.stale_dispatch")
         fused = arr.shape[-1] == kernels.FUSED_PACKED_WIDTH
+        # A relocation (growth of a sharded matrix, an evacuation) while
+        # this dispatch was in flight moved rows: map them through the
+        # matrix's remap window (rows too old come back -1, a failed
+        # placement that the stack retries).  Once a ticket.
+        rows = self.matrix.translate_rows(
+            arr[:len(entries), :, kernels.PACKED_ROW].astype(np.int32),
+            ticket.matrix_version,
+        )
         for i, p in enumerate(entries):
             row = arr[i]
-            rows_i = row[:, kernels.PACKED_ROW].astype(np.int32)
+            rows_i = rows[i]
             fit_verified = None
             if fused:
                 # The device-resident AllocsFit column: a 0.0 on a real

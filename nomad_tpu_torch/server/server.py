@@ -94,6 +94,10 @@ class ServerConfig:
     # Overlapping dispatches the coalescer keeps in flight.  None = env
     # NOMAD_TPU_PIPELINE_DEPTH, default 8.
     pipeline_depth: Optional[int] = None
+    # Devices the coalescer's dispatches span (the node-sharded dispatch,
+    # parallel/).  None = the length of a device list given to Server,
+    # else every visible card when the host has more than one, else 1.
+    n_device_shards: Optional[int] = None
     # Seconds between retries of the evals blocked after placement
     # conflicts (leader.go failedEvalUnblockInterval).
     failed_eval_unblock_interval: float = 60.0
@@ -135,11 +139,18 @@ class Server:
     """The scheduling path's control plane.  ``device`` is where the node
     matrix lives and the kernels run: ``"cuda"`` (the default) needs a
     card and raises without one; ``"cpu"`` runs the plain PyTorch
-    versions."""
+    versions.  A list of devices (``["cuda:0", "cuda:1"]``, or one device
+    named several times for virtual shards) makes the coalescer's
+    dispatches node-sharded over them; the first is the lead, where the
+    one-device work (solo selects, system jobs, the plan verify) runs."""
 
     def __init__(self, config: Optional[ServerConfig] = None, device="cuda"):
+        from ..parallel.sharding import device_list
+
         self.config = config or ServerConfig()
-        self.device = resolve_device(device)
+        self.devices = device_list(device)
+        self.device = (self.devices[0] if self.devices
+                       else resolve_device(device))
         from ..metrics import MetricsRegistry
 
         self.metrics = MetricsRegistry()
@@ -191,7 +202,9 @@ class Server:
         self.coalescer = DeviceCoalescer(
             self.matrix, max_lanes=self.config.coalescer_lanes,
             pipeline_depth=self.config.pipeline_depth,
-            metrics=self.metrics, device=self.device,
+            metrics=self.metrics,
+            device=self.devices or self.device,
+            n_device_shards=self.config.n_device_shards,
         )
         self.matrix.coalescer = self.coalescer
 
@@ -232,14 +245,19 @@ class Server:
         self._unblocker: Optional[threading.Thread] = None
         self._reaper: Optional[threading.Thread] = None
         self._acl_cache: Dict = {}
+        # Dry runs (plan_job) in flight, and whether an install holds new
+        # ones off: an install waits for the dry runs in flight and none
+        # starts until the image is in.
+        self._dry_cond = threading.Condition()
+        self._dry_runs = 0
+        self._installing = False
 
     def _register_telemetry_gauges(self) -> None:
         """The matrix, coalescer and encoder counters as pull gauges of the
         registry, so one snapshot carries the device cost picture.  The
-        reference's gauges on sharding (shard evacuations, shard rows,
-        top-k host bytes) and on counters this package's coalescer does
-        not keep (verify conflicts, feature recompiles, operand bytes)
-        wait for those subjects."""
+        reference's gauges on counters this package's coalescer does not
+        keep (top-k host bytes, verify conflicts, feature recompiles,
+        operand bytes) wait for those subjects."""
         m = self.metrics
         c = self.coalescer
         mx = self.matrix
@@ -259,6 +277,9 @@ class Server:
         m.gauge_fn("nomad.coalescer.stale_dispatches", lambda: c.stale_dispatches)
         m.gauge_fn(
             "nomad.coalescer.wedged_dispatches", lambda: c.wedged_dispatches
+        )
+        m.gauge_fn(
+            "nomad.coalescer.shard_evacuations", lambda: c.shard_evacuations
         )
         m.gauge_fn("nomad.matrix.full_uploads", lambda: mx.full_uploads)
         m.gauge_fn("nomad.matrix.scatter_syncs", lambda: mx.scatter_syncs)
@@ -292,6 +313,17 @@ class Server:
         m.gauge_fn(
             "nomad.kernel.compile_cache", lambda: enc.cache_misses, result="miss"
         )
+        # Node-axis sharding: claimed rows per home shard (more series
+        # appear when the coalescer homes the matrix to a wider mesh at
+        # its first dispatch).
+        for s in range(mx.shard_count):
+            m.gauge_fn(
+                "nomad.matrix.shard_rows",
+                lambda s=s: (
+                    mx.shard_row_counts()[s] if s < mx.shard_count else 0
+                ),
+                shard=s,
+            )
 
     # ------------------------------------------------------------------
 
@@ -396,16 +428,30 @@ class Server:
         followers, which schedule nothing; so a leader steps down first
         and its workers finish their evals, and no select holds rows of
         the matrix that the install clears.  It takes leadership back
-        after, which re-enqueues the image's evals."""
-        leader = self._leader
-        self.revoke_leadership()
-        for w in self.workers:  # signal all first: each polls for 0.2 s
-            w.stop(timeout=0)
-        for w in self.workers:
-            w.stop(timeout=None)
-        self.store.install_snapshot(snapshot_wire, seq)
-        if leader:
-            self.establish_leadership()
+        after, which re-enqueues the image's evals.  Dry runs
+        (:meth:`plan_job`) select through the same matrix: the install
+        waits for those in flight and holds new ones off until the image
+        is in, so none reads rows that the install reassigns."""
+        with self._dry_cond:
+            while self._installing:
+                self._dry_cond.wait()
+            self._installing = True
+            while self._dry_runs:
+                self._dry_cond.wait()
+        try:
+            leader = self._leader
+            self.revoke_leadership()
+            for w in self.workers:  # signal all first: each polls for 0.2 s
+                w.stop(timeout=0)
+            for w in self.workers:
+                w.stop(timeout=None)
+            self.store.install_snapshot(snapshot_wire, seq)
+            if leader:
+                self.establish_leadership()
+        finally:
+            with self._dry_cond:
+                self._installing = False
+                self._dry_cond.notify_all()
 
     def shutdown(self) -> None:
         self._leader = False
@@ -569,7 +615,20 @@ class Server:
         the coalescer and the card's kernels — against a pinned snapshot
         with a recording planner; nothing commits.  Returns per-TG
         create/update/destroy annotations, placement failures, and
-        (optionally) a coarse spec diff."""
+        (optionally) a coarse spec diff.  A snapshot install in progress
+        holds the dry run off until the image is in."""
+        with self._dry_cond:
+            while self._installing:
+                self._dry_cond.wait()
+            self._dry_runs += 1
+        try:
+            return self._plan_job(job, diff)
+        finally:
+            with self._dry_cond:
+                self._dry_runs -= 1
+                self._dry_cond.notify_all()
+
+    def _plan_job(self, job: Job, diff: bool) -> Dict:
         from ..scheduler import new_scheduler
         from ..structs import serde
 

@@ -31,6 +31,11 @@ Encoding:
 Host-side, a mirror lives in numpy; mutations mark dirty rows and
 ``sync(device)`` writes only those rows into the resident torch tensors
 (one ``index_copy_`` per field), so steady-state transfer is O(dirty rows).
+A second resident copy may be laid out over a mesh of devices
+(``sync_sharded``, the node-sharded dispatch of ``parallel/``): the rows
+split into ``shard_count`` equal home-shard blocks, claims balance across
+them, growth keeps each row's shard, and an evacuation re-lays every row
+over the surviving shards.
 ``port_words`` is ``uint32`` on the host and travels as an ``int32`` view
 of the same bits: PyTorch's CPU kernels have no ``>>`` on ``uint32``, and
 ``(w >> b) & 1`` reads the same bit of either type for every b ≤ 31.
@@ -312,6 +317,28 @@ class NodeMatrix:
         self._encoder = None
         self._shared_masks: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._shared_zero_i32: Optional[np.ndarray] = None
+        # Sharded residency (the node-sharded dispatch): a second resident
+        # copy laid out over a mesh, with its own dirty set so the
+        # one-device and sharded copies sync independently.
+        self._sharded_device = None
+        self._sharded_valid = False
+        self._sharded_dirty: set = set()
+        self._sharded_mesh = None
+        self._sharded_scatter = None
+        # Node-axis sharding: the capacity splits into shard_count equal
+        # row blocks, one per mesh node shard.  Row claims balance across
+        # blocks and _grow relocates rows so a node's (home shard, local
+        # offset) pair survives growth.  shard_count == 1 is the dense
+        # policy.
+        self.shard_count = 1
+        self._shard_next: List[int] = [0]
+        self._shard_claimed: List[int] = [0]
+        # Row-relocation history: (version after the remap, mapping)
+        # pairs, so in-flight dispatches that recorded global rows against
+        # an older version can translate them (translate_rows).  Bounded;
+        # anything older resolves to -1 (a failed placement, retried).
+        self._remaps: List[Tuple[int, np.ndarray]] = []
+        self._remap_floor = 0
 
     def shared_encoder(self):
         """The matrix-wide RequestEncoder.  Scheduling stacks are built per
@@ -372,26 +399,197 @@ class NodeMatrix:
             "dyn_used": np.zeros((cap,), np.int32),
         }
 
+    # How many row-relocation mappings translate_rows keeps.  A dispatch
+    # outlives at most a handful of relocations; anything older maps to -1
+    # (a failed placement, retried) rather than a wrong row.
+    _REMAP_KEEP = 16
+
+    def _record_remap_locked(self, mapping: np.ndarray) -> None:
+        self.version += 1
+        self._remaps.append((self.version, mapping))
+        if len(self._remaps) > self._REMAP_KEEP:
+            dropped = self._remaps[: -self._REMAP_KEEP]
+            self._remap_floor = dropped[-1][0]
+            del self._remaps[: -self._REMAP_KEEP]
+
     def _grow(self, min_cap: int) -> None:
         new_cap = self.capacity
         while new_cap < min_cap:
             new_cap *= 2
         new = self._allocate_arrays(new_cap)
-        for k, arr in self._alloc.items():
-            new[k][: self.capacity] = arr
+        if self.shard_count > 1:
+            # Shard-preserving relocation: row r of shard s sits at offset
+            # (r - s·old_blk) of its block and moves to the same offset of
+            # the same shard's doubled block, so a node never migrates
+            # between shards.  The mapping is recorded so in-flight
+            # dispatches can translate rows they scored before growth.
+            old_blk = self.capacity // self.shard_count
+            new_blk = new_cap // self.shard_count
+            rows = np.arange(self.capacity, dtype=np.int64)
+            mapping = ((rows // old_blk) * new_blk + rows % old_blk).astype(
+                np.int32)
+            for k, arr in self._alloc.items():
+                new[k][mapping] = arr
+            self.row_of = {
+                nid: int(mapping[r]) for nid, r in self.row_of.items()}
+            self.node_of = {r: nid for nid, r in self.row_of.items()}
+            self._free = [int(mapping[r]) for r in self._free]
+            self._dirty = {int(mapping[r]) for r in self._dirty}
+            self._sharded_dirty = {
+                int(mapping[r]) for r in self._sharded_dirty}
+            self._shard_next = [
+                s * new_blk + (nxt - s * old_blk)
+                for s, nxt in enumerate(self._shard_next)]
+            self._next_row = max((r + 1 for r in self.node_of), default=0)
+            self._record_remap_locked(mapping)
+        else:
+            for k, arr in self._alloc.items():
+                new[k][: self.capacity] = arr
         self._alloc = new
         self.capacity = new_cap
         self._device_valid = False
+        self._sharded_valid = False
 
     @property
     def n_rows(self) -> int:
         return self._next_row
 
+    def set_shard_count(self, n: int) -> None:
+        """Partition the row space into ``n`` equal home-shard blocks
+        (block b = rows [b·capacity/n, (b+1)·capacity/n)), the mesh's
+        node-axis width.  Later claims balance across blocks and growth
+        keeps each row's home shard.  ``n`` must divide the capacity;
+        ``n == 1`` is the dense policy."""
+        n = max(1, int(n))
+        with self._host_lock:
+            if n == self.shard_count:
+                return
+            if self.capacity % n:
+                raise ValueError(
+                    f"shard_count {n} does not divide capacity "
+                    f"{self.capacity}")
+            self.shard_count = n
+            blk = self.capacity // n
+            self._shard_next = [s * blk for s in range(n)]
+            self._shard_claimed = [0] * n
+            for r in self.node_of:
+                self._shard_claimed[r // blk] += 1
+
+    def home_shard(self, row: int) -> int:
+        """The node shard that owns ``row`` under the current partition."""
+        return row // (self.capacity // self.shard_count)
+
+    def shard_row_counts(self) -> List[int]:
+        """Claimed rows per home shard (the shard-balance gauge)."""
+        with self._host_lock:
+            if self.shard_count == 1:
+                return [len(self.node_of)]
+            return list(self._shard_claimed)
+
+    def shard_nodes(self, shard: int) -> List[str]:
+        """Node ids homed on ``shard``."""
+        with self._host_lock:
+            blk = self.capacity // self.shard_count
+            return [nid for r, nid in self.node_of.items()
+                    if r // blk == shard]
+
+    def translate_rows(self, rows: np.ndarray,
+                       from_version: int) -> np.ndarray:
+        """Map global rows recorded at matrix ``from_version`` through
+        every relocation since (growth of a sharded matrix, a re-layout).
+        Rows older than the kept window become -1 (the caller treats that
+        as a failed placement and retries); negative rows pass as they
+        are."""
+        if not self._remaps:
+            # Nothing ever relocated (every unsharded matrix): no lock.
+            return rows
+        with self._host_lock:
+            remaps = [(v, mp) for v, mp in self._remaps if v > from_version]
+            floor = self._remap_floor
+        if not remaps:
+            return rows
+        out = np.array(rows, np.int64, copy=True)
+        pos = out >= 0
+        if from_version < floor:
+            out[pos] = -1
+            return out.astype(rows.dtype, copy=False)
+        for _ver, mapping in remaps:
+            ok = pos & (out >= 0) & (out < len(mapping))
+            out = np.where(
+                ok, mapping[np.clip(out, 0, len(mapping) - 1)],
+                np.where(pos, -1, out))
+        return out.astype(rows.dtype, copy=False)
+
+    def relayout_shards(self, n: int) -> np.ndarray:
+        """Re-home every claimed row under a fresh ``n``-shard partition
+        by replaying the claim policy (least-claimed shard, lowest index
+        on ties, a cursor per shard) over the nodes in ascending old-row
+        order: the result equals inserting the same nodes in that order
+        into an empty ``n``-shard matrix.  Capacity rounds up to a
+        multiple of ``n``.  The old→new mapping (-1 for unclaimed rows) is
+        recorded for :meth:`translate_rows`; both resident copies
+        invalidate, so the next sync lays out in full.  Returns the
+        mapping."""
+        n = max(1, int(n))
+        with self._host_lock:
+            old_cap = self.capacity
+            new_cap = old_cap if old_cap % n == 0 else (
+                (old_cap + n - 1) // n) * n
+            blk = new_cap // n
+            mapping = np.full((old_cap,), -1, np.int32)
+            claimed = [0] * n
+            cursor = [s * blk for s in range(n)]
+            new_row_of: Dict[str, int] = {}
+            for old_row in sorted(self.node_of):
+                s = min(range(n), key=lambda i: (claimed[i], i))
+                r = cursor[s]
+                cursor[s] = r + 1
+                claimed[s] += 1
+                mapping[old_row] = r
+                new_row_of[self.node_of[old_row]] = r
+            new = self._allocate_arrays(new_cap)
+            src = mapping >= 0
+            if src.any():
+                dst = mapping[src]
+                for k, arr in self._alloc.items():
+                    new[k][dst] = arr[src]
+            self._alloc = new
+            self.capacity = new_cap
+            self.shard_count = n
+            self.row_of = new_row_of
+            self.node_of = {r: nid for nid, r in new_row_of.items()}
+            self._free = []
+            self._shard_next = cursor
+            self._shard_claimed = claimed
+            self._next_row = max((r + 1 for r in self.node_of), default=0)
+            self._dirty.clear()
+            self._sharded_dirty.clear()
+            self._record_remap_locked(mapping)
+            self._device_valid = False
+            self._sharded_valid = False
+            self._shared_masks = None
+            self._shared_zero_i32 = None
+            return mapping
+
+    def evacuate_shard(self, shard: int) -> np.ndarray:
+        """Evacuate a lost home shard: re-lay every node over the
+        surviving ``shard_count - 1`` shards (the host mirror is whole:
+        only the shard's resident copy was lost, so every node re-homes).
+        Returns the old→new mapping of :meth:`relayout_shards`."""
+        if self.shard_count <= 1:
+            raise ValueError("evacuate_shard requires shard_count > 1")
+        if not 0 <= shard < self.shard_count:
+            raise ValueError(
+                f"shard {shard} out of range 0..{self.shard_count - 1}")
+        return self.relayout_shards(self.shard_count - 1)
+
     def _claim_row(self, node_id: str) -> int:
         row = self.row_of.get(node_id)
         if row is not None:
             return row
-        if self._free:
+        if self.shard_count > 1:
+            row = self._claim_sharded_row_locked()
+        elif self._free:
             row = self._free.pop()
         else:
             if self._next_row >= self.capacity:
@@ -402,6 +600,33 @@ class NodeMatrix:
         self.node_of[row] = node_id
         return row
 
+    def _claim_sharded_row_locked(self) -> int:
+        """A row on the least-occupied home shard: a freed row of that
+        shard's block if any, else the block's claim cursor.  Falls
+        through fuller shards before growing (doubling every block)."""
+        blk = self.capacity // self.shard_count
+        order = sorted(range(self.shard_count),
+                       key=lambda s: (self._shard_claimed[s], s))
+        for s in order:
+            lo, hi = s * blk, (s + 1) * blk
+            for i in range(len(self._free) - 1, -1, -1):
+                r = self._free[i]
+                if lo <= r < hi:
+                    del self._free[i]
+                    self._shard_claimed[s] += 1
+                    self._next_row = max(self._next_row, r + 1)
+                    return r
+            nxt = max(self._shard_next[s], lo)
+            while nxt < hi and nxt in self.node_of:
+                nxt += 1
+            if nxt < hi:
+                self._shard_next[s] = nxt + 1
+                self._shard_claimed[s] += 1
+                self._next_row = max(self._next_row, nxt + 1)
+                return nxt
+        self._grow(self.capacity + 1)
+        return self._claim_sharded_row_locked()
+
     # -- mutations ----------------------------------------------------------
 
     def _mark_dirty_locked(self, row: int) -> None:
@@ -409,6 +634,7 @@ class NodeMatrix:
         copy resyncs it, and the version bump lets in-flight pipelined
         dispatches detect they scored a stale snapshot."""
         self._dirty.add(row)
+        self._sharded_dirty.add(row)
         self.version += 1
 
     def clear(self) -> None:
@@ -424,6 +650,11 @@ class NodeMatrix:
             self._alloc = self._allocate_arrays(self.capacity)
             self._dirty.clear()
             self._device_valid = False
+            self._sharded_dirty.clear()
+            self._sharded_valid = False
+            blk = self.capacity // self.shard_count
+            self._shard_next = [s * blk for s in range(self.shard_count)]
+            self._shard_claimed = [0] * self.shard_count
             self.version += 1
 
     def upsert_node(self, node: Node) -> int:
@@ -520,6 +751,8 @@ class NodeMatrix:
         self._alloc["class_id"][row] = -1
         self._alloc["prio_used"][row] = 0
         self._free.append(row)
+        if self.shard_count > 1:
+            self._shard_claimed[self.home_shard(row)] -= 1
         self._mark_dirty_locked(row)
 
     def _usage_of(self, alloc: Allocation) -> np.ndarray:
@@ -695,3 +928,66 @@ class NodeMatrix:
 
     def invalidate(self) -> None:
         self._device_valid = False
+        self._sharded_valid = False
+
+    # -- sharded device sync ------------------------------------------------
+
+    def sync_sharded(self, mesh):
+        """The mesh-resident copy for the node-sharded dispatch
+        (``parallel.ShardedArrays``), writing only dirty rows into the
+        shards that own them.
+
+        A full lay-out into new tensors on first use, on growth, on a
+        re-layout, after ``clear`` (a snapshot install) and on a change of
+        mesh; otherwise one ``index_copy_`` per field and shard of the
+        dirty rows (``parallel.make_sharded_row_scatter``), in place on
+        each device's current stream."""
+        with DEVICE_LOCK:
+            return self._sync_sharded_locked(mesh)
+
+    def _sync_sharded_locked(self, mesh):
+        from ..parallel.sharding import (
+            make_sharded_row_scatter,
+            shard_matrix_arrays,
+        )
+
+        if self._sharded_mesh is not mesh:
+            self._sharded_mesh = mesh
+            self._sharded_scatter = make_sharded_row_scatter(mesh)
+            self._sharded_valid = False
+
+        if self._sharded_device is None or not self._sharded_valid:
+            with self._host_lock:
+                host_copy = DeviceArrays(**{
+                    f: self._alloc[f].copy() for f in DeviceArrays._fields})
+                self._sharded_dirty.clear()
+                # Claim validity under the lock, as _sync_locked does: a
+                # concurrent _grow's invalidation then wins.
+                self._sharded_valid = True
+            try:
+                self._sharded_device = shard_matrix_arrays(mesh, host_copy)
+            except BaseException:
+                self._sharded_valid = False
+                raise
+            self.full_uploads += 1
+            self.upload_bytes_total += sum(a.nbytes for a in host_copy)
+            return self._sharded_device
+
+        with self._host_lock:
+            if not self._sharded_dirty:
+                return self._sharded_device
+            rows = np.fromiter(self._sharded_dirty, np.int64)
+            self._sharded_dirty.clear()
+            # Ascending rows group each shard's updates into one run.
+            rows.sort()
+            row_data = {f: self._alloc[f][rows] for f in DeviceArrays._fields}
+        try:
+            self._sharded_scatter(self._sharded_device, rows, row_data)
+        except BaseException:
+            with self._host_lock:
+                self._sharded_dirty.update(int(r) for r in rows)
+            raise
+        self.scatter_syncs += 1
+        self.rows_scattered_total += len(rows)
+        self.upload_bytes_total += sum(a.nbytes for a in row_data.values())
+        return self._sharded_device

@@ -522,12 +522,10 @@ def test_observability_routes(tmp_path):
 
         got = {name: script(a.rpc_addr, a) for name, a in pair.items()}
     # The port's registry lacks exactly the gauges whose subjects it does
-    # not have (ROADMAP "Drops": sharding, the coalescer counters).
-    dropped = {"nomad.coalescer.shard_evacuations",
-               "nomad.kernel.feature_recompiles",
+    # not have (ROADMAP "Drops": the coalescer counters).
+    dropped = {"nomad.kernel.feature_recompiles",
                "nomad.kernel.operand_bytes_total",
                "nomad.kernel.verify_conflicts",
-               "nomad.matrix.shard_rows{shard=0}",
                "nomad.topk.host_bytes_total"}
     jax_metrics = got["jax"].pop("metrics")
     port_metrics = got["port"].pop("metrics")
@@ -536,11 +534,9 @@ def test_observability_routes(tmp_path):
     jax_prom = got["jax"].pop("prometheus")
     port_prom = got["port"].pop("prometheus")
     assert jax_prom[:2] == port_prom[:2]
-    prom_dropped = {"nomad_coalescer_shard_evacuations",
-                    "nomad_kernel_feature_recompiles",
+    prom_dropped = {"nomad_kernel_feature_recompiles",
                     "nomad_kernel_operand_bytes_total",
                     "nomad_kernel_verify_conflicts",
-                    "nomad_matrix_shard_rows",
                     "nomad_topk_host_bytes_total"}
     assert sorted(set(jax_prom[2]) - prom_dropped) == port_prom[2]
     assert any(n.startswith("nomad_coalescer_dispatches")

@@ -659,3 +659,99 @@ def test_trimmed_wrappers_still_refuse_bad_operands(cuda):
         k.allocs_fit_verify(*ops[:4], ops[4].to(torch.int64), *ops[5:])
     with pytest.raises(ValueError):
         k.allocs_fit_verify(*ops[:6], ops[6].cpu())
+
+
+# ---------------------------------------------------------------------------
+# Several cards, and the node-sharded dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_every_kernel_on_the_last_card(cuda):
+    """Each kernel launched on the last visible card while the first one
+    is current: the wrappers make the tensors' card current, and each
+    kernel sets its one-time attributes (fused_place's and
+    allocs_fit_verify's dynamic shared memory past 48 KB) on that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from nomad_tpu_torch.parallel import sharding
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    m = cluster(last)
+    args, feats = batch_args(m, requests(m), last)
+    packed = k.fused_place(*args, SCAN, k.FULL_FEATURES)
+    assert packed.device == last
+    assert_same(packed, k.place_lanes(*args, SCAN, k.FULL_FEATURES))
+    arrays = args[0]
+    vargs = (arrays.totals, arrays.used, packed, args[8], args[2], args[3],
+             args[11])
+    assert_same(k.allocs_fit_verify(*vargs), k.verify_lanes(*vargs))
+    sargs, sfeats = score_batch_args(m, requests(m), last)
+    assert_same(k.pack_batch_result(k.score_batch(*sargs, sfeats))[:, None],
+                k.pack_batch_result(k.score_batch_plain(*sargs, sfeats))[:, None])
+    req = system_requests(m)[0]
+    ri, rf = k.pack_request(req, last)
+    ce = torch.ones((8,), dtype=torch.bool, device=last)
+    hm = torch.ones((arrays.used.shape[0],), dtype=torch.bool, device=last)
+    assert torch.equal(
+        k.system_feasible(arrays, arrays.used, ri, rf, ce, hm).cpu(),
+        k.system_feasible_plain(arrays, arrays.used, ri, rf, ce, hm).cpu())
+    rows = torch.arange(0, 64, dtype=torch.int32, device=last)
+    deltas = torch.full((64, 3), 100.0, device=last)
+    er = torch.ones((64,), dtype=torch.bool, device=last)
+    assert torch.equal(k.verify_plan_fit(arrays, rows, deltas, er).cpu(),
+                       k.verify_plan_fit_plain(arrays, rows, deltas, er).cpu())
+    mesh = sharding.make_mesh(devices=[last] * 2)
+    sharded = sharding.shard_matrix_arrays(mesh, arrays)
+    host = [a.cpu().numpy() for a in args[2:]]
+    got = sharding.sharded_fused_place_batch(mesh, SCAN)(
+        sharded, *host, features=feats)
+    assert got.device == last
+    want = k.fused_place_batch(*args, SCAN, feats)
+    assert torch.equal(got, want)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_sharded_programs_match_unsharded_on_the_card(cuda, n_dev):
+    """Virtual shards of one card: the three sharded programs equal the
+    unsharded kernels exactly, and ``sharded_place`` its plain version."""
+    from nomad_tpu_torch.parallel import sharding
+
+    m = cluster(cuda)
+    args, feats = batch_args(m, requests(m), cuda)
+    arrays = args[0]
+    host = [a.cpu().numpy() for a in args[2:]]
+    mesh = sharding.make_mesh(devices=[cuda] * n_dev)
+    sharded = sharding.shard_matrix_arrays(mesh, arrays)
+    before = (k.sharded_place.launches, k.allocs_fit_verify.window_launches)
+    got = sharding.sharded_fused_place_batch(mesh, SCAN)(
+        sharded, *host, features=feats)
+    assert torch.equal(got, k.fused_place_batch(*args, SCAN, feats))
+    assert k.sharded_place.launches == before[0] + (SCAN + 1) * n_dev
+    assert k.allocs_fit_verify.window_launches == (
+        before[1] + sharding.node_shard_count(mesh))
+    staged = sharding.sharded_place_batch(mesh, SCAN)(sharded, *host[:-1])
+    assert torch.equal(staged, k.place_batch(*args[:-1], SCAN))
+    sargs, _ = score_batch_args(m, requests(m), cuda)
+    usage_before = k.sharded_usage.launches
+    res, used_after = sharding.sharded_schedule_step(mesh)(
+        sharded, *[a.cpu().numpy() for a in sargs[2:]])
+    assert k.sharded_usage.launches == usage_before + n_dev
+    want = k.score_batch(*sargs)
+    assert torch.equal(k.pack_batch_result(res), k.pack_batch_result(want))
+    # The usage after the step: the unsharded usage plus each pick's ask
+    # (summed in lane order per batch row, then over batch rows).
+    packed = k.pack_batch_result(want)[:, None].contiguous()
+    want_used = k.sharded_usage_plain(arrays.used.cpu(), packed.cpu(),
+                                      sargs[6].cpu(), mesh.shape[0])
+    for row in used_after:
+        assert torch.equal(torch.cat([u.cpu() for u in row]), want_used)
+    assert torch.equal(
+        k.sharded_usage(arrays.used, packed, sargs[6], mesh.shape[0]).cpu(),
+        want_used)
+    groups = sharding._lane_groups(sharded, *host)
+    for row, out in zip(groups, k.sharded_place(groups, SCAN, feats)):
+        assert torch.equal(out, k.sharded_place_plain(row, SCAN, feats))

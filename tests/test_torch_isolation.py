@@ -118,3 +118,32 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = run_smoke(tmp_path, script)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_sharded_paths_without_card_raise(monkeypatch):
+    """A device list that names the card raises where there is none, at
+    every entry of the node-sharded dispatch; the CPU list is the one way
+    onto the plain versions."""
+    from nomad_tpu_torch.entry import dryrun_multichip
+    from nomad_tpu_torch.ops import build
+    from nomad_tpu_torch.parallel import make_mesh
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.state.matrix import NodeMatrix
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: make_mesh(),
+        lambda: make_mesh(4, devices=["cuda:0"] * 4),
+        lambda: Server(ServerConfig(num_workers=1), device=["cuda:0"] * 2),
+        lambda: DeviceCoalescer(NodeMatrix(capacity=16),
+                                device=["cuda:0"] * 2),
+        lambda: dryrun_multichip(4, "cuda:0"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    Server(ServerConfig(num_workers=1), device=["cpu"] * 2)
+    assert "sharded_place" in build.KERNELS
+    for name in build.KERNELS:
+        src = (PORT / "ops" / "csrc" / f"{name}.cu").read_text()
+        assert '#include "layout.cuh"' in src

@@ -419,10 +419,18 @@ def test_record_span_and_event_under_budget():
 def test_unsampled_and_disabled_spans_are_cheaper():
     reg = TRegistry()
     span_burn(500, reg)
-    sampled = best_of(5, 2000, lambda n: span_burn(n, reg))
     ttrace.configure(sample=0.0)
     span_burn(500, reg)
-    assert best_of(5, 2000, lambda n: span_burn(n, reg)) <= sampled * 1.5
+    # The sampled and unsampled burns alternate, round by round, so load
+    # from the other test workers falls on both alike.
+    sampled = unsampled = float("inf")
+    for _ in range(5):
+        ttrace.configure(sample=1.0)
+        sampled = min(sampled, best_of(1, 2000, lambda n: span_burn(n, reg)))
+        ttrace.configure(sample=0.0)
+        unsampled = min(unsampled,
+                        best_of(1, 2000, lambda n: span_burn(n, reg)))
+    assert unsampled <= sampled * 1.5
     ttrace.configure(enabled=False)
     span_burn(500)
     assert best_of(5, 5000, span_burn) < CEILING_S / 2
