@@ -273,8 +273,9 @@ Phases:
    every column exactly (scores and binpack max |err| 0), the step's
    usage against the unsharded usage plus the picks' asks exactly (its
    ``sharded_usage`` launches counted around the steps), and
-   ``sharded_place`` (the kernel, P + 1 launches a shard with the offer
-   exchange between them), ``sharded_usage`` and the windowed
+   ``sharded_place`` (the kernel, one launch a card a step over every
+   shard there: P + 1 launches and no offer copy on one card),
+   ``sharded_usage`` and the windowed
    ``allocs_fit_verify`` against their plain versions.  Then live servers: one on ``["cuda:0"] * 4``
    and one on the card alone register the server phases' 10,000 nodes
    with the same usage, place 16 service jobs one at a time onto the
@@ -286,8 +287,9 @@ Phases:
    (``coalescer.evacuate_shard``): every eval completes, and the layout
    equals a from-scratch one on the three survivors; after the heal a
    second burst completes on four shards again, the layout equal to a
-   from-scratch one.  Logs the launch counts, the offer copies per
-   dispatch, the dispatch time and both bursts' evals/s.
+   from-scratch one.  Logs the launch counts and offer copies per
+   dispatch (14b fails unless a virtual mesh's dispatch is P + 1
+   launches and no copy), the dispatch time and both bursts' evals/s.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -5389,6 +5391,9 @@ def phase_front_door(card: str, results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SHARD_SEQ_JOBS = 16  # jobs placed one at a time on both servers
+# Bytes of one candidate's state in csrc/place_scan.cuh (cand_bytes) by
+# instantiation tier: bench widths, full widths.
+CAND_BYTES = (16 + 5 + 1, 16 + 4 + 5 * 2 + 1)
 
 
 def shard_meshes():
@@ -5424,23 +5429,22 @@ def exact(label: str, got, want) -> None:
                              f"kernel ({len(bad)} entries; first {bad[:3]})")
 
 
-def sharded_place_work(batch: Batch, packed, mesh):
+def sharded_place_work(batch: Batch, packed, mesh, cand_bytes: int):
     """(bytes, float32 ops) of the sharded placement scan on the busiest
     card: the function's own (``fused_place_work``: the columns the live
     lanes refer to read once, the lanes' operands once, the output once,
     and the operations the data needs) in that card's share of the node
-    shards.  Also returns the bytes this design moves there, which reads
-    its shards' column slices once a step (it rescores every row at
-    every step): the per-step re-read, logged beside the bound."""
+    shards.  Also returns the bytes a later step of this design touches
+    there, logged beside the bound: the candidates' state (``cand_bytes``
+    a candidate; a live lane's candidates are the rows its step 0 found
+    feasible and fitting, evaluated less exhausted)."""
     nbytes, ops = fused_place_work(batch, packed, SCAN)
-    arrays, f, reqs = batch.arrays, batch.features, batch.np["reqs"]
-    n = int(arrays.used.shape[0])
     live = np.asarray(batch.np["lane_mask"], bool)
-    terms = [LaneTerms(reqs, lane, f) for lane in np.flatnonzero(live)]
-    cols = matrix_bytes(n, reqs, live, f, terms)
+    first = np.asarray(packed[:, 0].cpu())[live]
+    cands = float((first[:, 4] - first[:, 6]).sum())
     devs = [str(d) for d in mesh.flat()]
     share = max(devs.count(d) for d in set(devs)) / len(devs)
-    return nbytes * share, ops * share, (cols * SCAN + nbytes - cols) * share
+    return nbytes * share, ops * share, cands * cand_bytes * share
 
 
 def step_usage(used, rows, asks, n_batch: int) -> np.ndarray:
@@ -5483,6 +5487,36 @@ def wait_terminal(srv, evals, timeout_s: float = 300.0) -> None:
     statuses = {last_eval(srv, e.id).status for e in evals}
     if statuses != {"complete"}:
         raise AssertionError(f"eval statuses {statuses}")
+
+
+def sharded_device_us(fn, per_call: int, runs: int = 4, passes: int = 3):
+    """Device times of ``sharded_place_kernel`` over ``runs`` calls of
+    ``fn`` (``per_call`` launches each, step 0 first), from the profiler's
+    kernel records: ``dispatch_us`` (the launches' sum a call),
+    ``step0_us`` (the median of the calls' first launches) and
+    ``later_us`` (the median of the others).  None (not measured) when no
+    pass kept every record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        recs = sorted((e.time_range.start, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if "sharded_place_kernel" in e.name)
+        if len(recs) != runs * per_call:
+            log(f"profiler: {len(recs)} of {runs * per_call} "
+                "sharded_place_kernel launches recorded")
+            continue
+        us = [d for _, d in recs]
+        return {"dispatch_us": sum(us) / runs,
+                "step0_us": statistics.median(us[::per_call]),
+                "later_us": statistics.median(
+                    [d for i, d in enumerate(us) if i % per_call])}
+    return None
 
 
 def check_sharded_launches(launches: dict) -> None:
@@ -5616,21 +5650,44 @@ def phase_sharded(card: str, results: dict) -> None:
             fn(sharded, *ops, features=feat.features)
         _sync()
         dispatch_ms = (time.perf_counter() - t0) / 5 * 1e3
+        # What one dispatch issues, counted by the wrapper.
+        before = (k.sharded_place.launches, k.sharded_place.copies)
         packed = torch.cat([o.to(mesh.lead) for o in
                             k.sharded_place(groups, SCAN, feat.features)])
-        nbytes, nops, reread = sharded_place_work(feat, packed, mesh)
+        n_launch = k.sharded_place.launches - before[0]
+        n_copy = k.sharded_place.copies - before[1]
+        if n_launch != SCAN + 1 or n_copy:
+            raise AssertionError(f"sharded[x{len(devs)}]: a dispatch on one "
+                                 f"card issued {n_launch} launches and "
+                                 f"{n_copy} offer copies, not {SCAN + 1} "
+                                 f"and 0")
+        shape = k.sharded_place_shape(
+            sharded.n_local, int(ops[5].shape[0]) // mesh.shape[0]
+            * len(devs), int(ops[0].shape[1]), SCAN, feat.features)
+        nbytes, nops, step_bytes = sharded_place_work(
+            feat, packed, mesh, CAND_BYTES[shape["tier"]])
         b_ms, b_by = bound(nbytes, nops)
         key = f"x{len(devs)}"
+        steps = sharded_device_us(
+            lambda: k.sharded_place(groups, SCAN, feat.features), n_launch)
         out[key] = {"sharded_place_ms": kern_ms, "dispatch_ms": dispatch_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "design_bytes": reread}
+                    "step_bytes": step_bytes, "launches": n_launch,
+                    "copies": n_copy, "shape": shape, "device": steps}
+        log(f"sharded[x{len(devs)}]: sharded_place on the device "
+            + ("not measured" if steps is None else
+               f"{steps['dispatch_us']:.3f} us a dispatch: step 0 "
+               f"{steps['step0_us']:.3f} us, a later step (median) "
+               f"{steps['later_us']:.3f} us") + f" (card: {card})")
         log(f"sharded[{key}]: sharded_place {kern_ms:.4f} ms a dispatch "
-            f"({(SCAN + 1) * len(devs)} launches, CUDA events), bound "
-            f"{b_ms:.6f} ms by {b_by} ({nbytes:.0f} bytes, {nops:.4g} ops "
-            f"on the busiest card); this design's per-step re-read moves "
-            f"{reread:.0f} bytes there ({reread / HBM_BYTES_PER_S * 1e3:.6f}"
-            f" ms at the memory rate); the whole fused dispatch "
-            f"{dispatch_ms:.3f} ms on the host clock (card: {card})")
+            f"({n_launch} launches and {n_copy} offer copies counted, CUDA "
+            f"events; cluster {shape['cluster']}, span {shape['span']}), "
+            f"bound {b_ms:.6f} ms by {b_by} ({nbytes:.0f} bytes, "
+            f"{nops:.4g} ops on the busiest card); a later step reads the "
+            f"candidates' state, {step_bytes:.0f} bytes there "
+            f"({step_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at the memory "
+            f"rate); the whole fused dispatch {dispatch_ms:.3f} ms on the "
+            f"host clock (card: {card})")
         if len(devs) != 4:
             continue
         rp["ms"], rp["bound_ms"], rp["bound_by"] = kern_ms, b_ms, b_by

@@ -112,13 +112,14 @@ _ARGTYPES = {
     "nomad_system_feasible": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nomad_score_batch": [_PTR] * 21 + [_INT] * 10 + [_PTR],
     "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
-    "nomad_sharded_place": [_PTR] * 25 + [_INT] * 16 + [_PTR],
+    "nomad_sharded_place": [_PTR, _INT, _PTR] + [_INT] * 10 + [_PTR],
     "nomad_sharded_usage": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # Launch-shape queries of the kernels that pick their own shape.
     "nomad_fused_place_shape": [_INT] * 9 + [_PTR],
     "nomad_score_batch_shape": [_INT] * 7 + [_PTR],
     "nomad_allocs_fit_verify_shape": [_INT] * 4 + [_PTR],
-    "nomad_sharded_place_shape": [_INT] * 3 + [_PTR],
+    "nomad_sharded_place_shape": [_INT] * 9 + [_PTR],
+    "nomad_sharded_pair_bytes": [],
 }
 _ENTRY = {
     "fused_place": ("nomad_fused_place", "nomad_fused_place_shape"),
@@ -128,7 +129,7 @@ _ENTRY = {
     "score_batch": ("nomad_score_batch", "nomad_score_batch_shape"),
     "verify_plan_fit": ("nomad_verify_plan_fit",),
     "sharded_place": ("nomad_sharded_place", "nomad_sharded_place_shape",
-                      "nomad_sharded_usage"),
+                      "nomad_sharded_pair_bytes", "nomad_sharded_usage"),
 }
 
 

@@ -555,10 +555,15 @@ extern "C" int nomad_allocs_fit_verify(const float* totals, const float* used,
     return (int)cudaErrorInvalidValue;
   const VerifyPlan pl = plan_of(n, b, p, d);
   if (pl.tier == 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  static bool configured[NOMAD_MAX_DEVICES];
+  // Both tiers may pass 48 KB of dynamic shared memory (tier 1's digit
+  // counts alone take 66 KB at 8-bit digits).
+  static bool configured[2][NOMAD_MAX_DEVICES];
   {
-    const cudaError_t err = nomad_smem_once(
-        configured, allocs_fit_verify_kernel<true>, SMEM_LIMIT);
+    cudaError_t err = nomad_smem_once(
+        configured[0], allocs_fit_verify_kernel<true>, SMEM_LIMIT);
+    if (err == cudaSuccess)
+      err = nomad_smem_once(configured[1], allocs_fit_verify_kernel<false>,
+                            SMEM_LIMIT);
     if (err != cudaSuccess) return (int)err;
   }
   Inputs in{totals,     used,  packed, req_f,      delta_rows, delta_vals,

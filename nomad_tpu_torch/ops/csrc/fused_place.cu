@@ -45,6 +45,8 @@
 //   to its copy of the tables (apply_spread_values, kernels.py:677); a
 //   value new to a table moves only the candidates holding that hash off
 //   "no match".
+//   The candidate layout and this step code are place_scan.cuh's, shared
+//   with sharded_place.cu.
 // * Usage is kept only where it differs from `used`: the lane's delta rows
 //   (summed in delta order, as .at[].add does; at most MAX_LANE_DELTAS)
 //   and its placed rows, in a small table in shared memory.
@@ -68,6 +70,7 @@
 #include "feasibility.cuh"
 #include "layout.cuh"
 #include "per_device.cuh"
+#include "place_scan.cuh"
 #include "scoring.cuh"
 
 namespace cg = cooperative_groups;
@@ -77,18 +80,6 @@ namespace cg = cooperative_groups;
 #define MAX_PLACEMENTS 64
 #define FP_MAX_CLUSTER 8
 #define FP_SMEM_BUDGET (200 * 1024)  // dynamic shared memory a CTA may take
-
-// Candidate flag bits.
-#define F_FEAS0 1   // feasible before the distinct_hosts gate
-#define F_FEAS 2    // feasible
-#define F_FITS 4    // fits, with preemption assist
-#define F_PRE 8     // needs preemption
-#define F_AA 16     // anti-affinity appended
-#define F_PEN 32    // penalty appended
-#define F_AFF 64    // affinity appended
-#define F_ELIG 128  // the node's eligible bit
-#define F_LIVE (F_FEAS | F_FITS)
-#define F_COUNTED (F_AA | F_PEN | F_AFF | F_PRE)
 
 struct FPParams {
   NodeTables m;              // the columns feasibility reads
@@ -111,58 +102,6 @@ struct FPParams {
   int n, b, d, k, p, span, umax, in_smem;
   RunWidths rw;
 };
-
-// Candidate state, structure of arrays over `cap` entries.
-template <class W>
-struct Cands {
-  int32_t* row;
-  float* p4;      // ((binpack + aa) + pen) + aff
-  float* bin;
-  float* aff;
-  float* pre;     // preemption component (W::PRE only)
-  int32_t* shash; // [SW][cap] the node's value hash per stanza
-  uint8_t* flags;
-  uint8_t* sidx;  // [SW][cap] its entry in the stanza's table
-};
-
-template <class W>
-__host__ __device__ constexpr size_t cand_bytes() {
-  return 16 + (W::PRE ? 4 : 0) + 5 * AtLeast1<W::SW>::value + 1;
-}
-
-template <class W>
-__device__ __forceinline__ Cands<W> cands_at(unsigned char* base, int cap) {
-  Cands<W> c;
-  c.row = (int32_t*)base;
-  c.p4 = (float*)(c.row + cap);
-  c.bin = c.p4 + cap;
-  c.aff = c.bin + cap;
-  float* q = c.aff + cap;
-  c.pre = q;
-  if (W::PRE) q += cap;
-  c.shash = (int32_t*)q;
-  c.flags = (uint8_t*)(c.shash + AtLeast1<W::SW>::value * cap);
-  c.sidx = c.flags + cap;
-  return c;
-}
-
-// A row whose usage differs from `used`.
-struct UEntry {
-  int row;
-  float u0, u1, u2;
-};
-
-// What a CTA offers at each step.
-struct Xchg {
-  Best best;
-  int c0, c1, c2, pad;
-};
-
-__device__ __forceinline__ int find_row(const UEntry* um, int nu, int r) {
-  for (int e = 0; e < nu; ++e)
-    if (um[e].row == r) return e;
-  return -1;
-}
 
 template <class W>
 __global__ void __launch_bounds__(FP_THREADS, 1)
@@ -272,72 +211,17 @@ fused_place_kernel(const __grid_constant__ FPParams P) {
         host[j] = valid && host_lane[row[j]] != 0;
       }
       feasible_k<W, K>(S, li, row, L, class_elig, P.k, host, feas0, elig);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const int i = row[j];
-        const bool valid = li[j] < nloc;
-        bool cand = false;
-        float p4 = 0.0f, bin = 0.0f, aff = 0.0f, pre = 0.0f;
-        int flags = 0;
-        const int tg = feas0[j] ? tg_lane[i] : 0;
-        const bool feas = feas0[j] && !(L.distinct && tg > 0);
-        c0 += feas;
-        c1 += valid && !feas && elig[j];
-        if (feas) {
-          float u0, u1, u2;
-          if ((bitmap[li[j] >> 5] >> (li[j] & 31)) & 1u) {
+      keep_candidates<W, K>(
+          S, L, P.used, P.prio_used, tg_lane, pen_lane, li, row, nloc, feas0,
+          elig, s_hash, cd, P.span, &n_cand, c0, c1, c2,
+          [&](int l, int i, float& u0, float& u1, float& u2) {
+            if (!((bitmap[l >> 5] >> (l & 31)) & 1u)) return false;
             const UEntry& e = umap[find_row(umap, n_umap, i)];
             u0 = e.u0;
             u1 = e.u1;
             u2 = e.u2;
-          } else {
-            u0 = P.used[i * 3];
-            u1 = P.used[i * 3 + 1];
-            u2 = P.used[i * 3 + 2];
-          }
-          float t0, t1, t2;
-          S.tot(li[j], i, t0, t1, t2);
-          const FitParts f =
-              fit_parts<W>(L, P.prio_used, i, u0, u1, u2, t0, t1, t2);
-          c2 += !f.fits_all;
-          if (f.fits_all) {
-            cand = true;
-            bool aa_app, aff_app;
-            const float aa = anti_affinity(tg, L.desired, aa_app);
-            const bool pen_app = pen_lane[i] != 0;
-            aff = affinity<W>(S, li[j], i, L, aff_app);
-            p4 = partial_sum(f.binpack, aa, pen_app ? -1.0f : 0.0f, aff);
-            bin = f.binpack;
-            pre = f.pre;
-            flags = F_FEAS0 | F_FEAS | F_FITS | (elig[j] ? F_ELIG : 0) |
-                    (f.needs_pre ? F_PRE : 0) | (aa_app ? F_AA : 0) |
-                    (pen_app ? F_PEN : 0) | (aff_app ? F_AFF : 0);
-          }
-        }
-        const unsigned bal = __ballot_sync(0xffffffffu, cand);
-        int slot0 = 0;
-        if (lid == 0 && bal) slot0 = atomicAdd(&n_cand, __popc(bal));
-        slot0 = __shfl_sync(0xffffffffu, slot0, 0);
-        if (cand) {
-          const int c = slot0 + __popc(bal & ((1u << lid) - 1u));
-          cd.row[c] = i;
-          cd.p4[c] = p4;
-          cd.bin[c] = bin;
-          cd.aff[c] = aff;
-          if (W::PRE) cd.pre[c] = pre;
-          cd.flags[c] = (uint8_t)flags;
-#pragma unroll
-          for (int s = 0; s < W::SW; ++s) {
-            int nv = 0, e = SPR_NOVALUE;
-            if (L.s_on[s]) {
-              nv = S.hash(li[j], i, -1, L.s_slot[s]);
-              e = spread_entry_of(nv, s, s_hash);
-            }
-            cd.shash[s * P.span + c] = nv;
-            cd.sidx[s * P.span + c] = (uint8_t)e;
-          }
-        }
-      }
+            return true;
+          });
     }
     c0 = __reduce_add_sync(0xffffffffu, c0);
     c1 = __reduce_add_sync(0xffffffffu, c1);
@@ -355,61 +239,15 @@ fused_place_kernel(const __grid_constant__ FPParams P) {
   for (int step = 0; step < P.p; ++step) {
     if (tid == 0) even_spread_stats(s_hash, s_cnt, s_mn, s_mx, s_any);
     __syncthreads();
-    for (int e = tid; e < W::SW * SPR_ENTRIES; e += FP_THREADS) {
-      const int s = e / SPR_ENTRIES;
-      if (L.s_on[s])
-        esc[s][e % SPR_ENTRIES] = spread_entry_score(
-            e % SPR_ENTRIES, s, ri, rf, s_hash, s_cnt, s_mn, s_mx, s_any);
-    }
+    spread_entry_scores<W, FP_THREADS>(esc, L, ri, rf, s_hash, s_cnt, s_mn,
+                                       s_mx, s_any);
     __syncthreads();
 
-    Best best = {-CUDART_INF_F, 0x7fffffff, 0.0f, 0};
-    int bc = -1;
-    for (int c = tid; c < nc; c += FP_THREADS) {
-      const int f = cd.flags[c];
-      if ((f & F_LIVE) != F_LIVE) continue;
-      float spr_total = 0.0f;
-#pragma unroll
-      for (int s = 0; s < W::SW; ++s)
-        if (L.s_on[s]) spr_total = spr_total + esc[s][cd.sidx[s * P.span + c]];
-      const float fin =
-          score_of(cd.p4[c], spr_total, L.has_spread,
-                   W::PRE ? cd.pre[c] : 0.0f, __popc(f & F_COUNTED));
-      const int r = cd.row[c];
-      if (better(fin, r, best.val, best.row)) {
-        best.val = fin;
-        best.row = r;
-        best.bin = cd.bin[c];
-        best.pre = (f & F_PRE) != 0;
-        bc = c;
-      }
-    }
-    // Block argmax, carrying the candidate index.
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best.val, off);
-      const int orow = __shfl_down_sync(0xffffffffu, best.row, off);
-      const float ob = __shfl_down_sync(0xffffffffu, best.bin, off);
-      const int op = __shfl_down_sync(0xffffffffu, best.pre, off);
-      const int oc = __shfl_down_sync(0xffffffffu, bc, off);
-      if (better(ov, orow, best.val, best.row)) {
-        best.val = ov;
-        best.row = orow;
-        best.bin = ob;
-        best.pre = op;
-        bc = oc;
-      }
-    }
-    if (lid == 0) {
-      w_best[warp] = best;
-      w_cand[warp] = bc;
-    }
-    __syncthreads();
+    Best best;
+    int bc;
+    block_best<W, FP_THREADS>(cd, nc, P.span, L, esc, w_best, w_cand, best,
+                              bc);
     if (tid == 0) {
-      for (int wi = 1; wi < FP_WARPS; ++wi)
-        if (better(w_best[wi].val, w_best[wi].row, best.val, best.row)) {
-          best = w_best[wi];
-          bc = w_cand[wi];
-        }
       Xchg& x = xchg[step & 1];
       x.best = best;
       x.c0 = cnt[0];
@@ -465,27 +303,12 @@ fused_place_kernel(const __grid_constant__ FPParams P) {
       // apply_spread_values (kernels.py:677) on the winner's values, in
       // every CTA's copy of the tables.
       for (int s = 0; s < MAX_S; ++s) {
-        ins_entry[s] = -1;
         const int slot = ri[RI_S_SLOT + s];
         int ss = slot < 0 ? 0 : slot;
         if (ss >= P.m.a) ss = P.m.a - 1;
         const int nv = P.m.attr_hash[(size_t)r * P.m.a + ss];
-        int* vh = s_hash + s * MAX_V;
-        int match = -1, free_slot = -1;
-        for (int v = 0; v < MAX_V; ++v) {
-          if (match < 0 && vh[v] == nv && nv != 0) match = v;
-          if (free_slot < 0 && vh[v] == 0) free_slot = v;
-        }
-        const bool have = match >= 0;
-        const int fs = free_slot < 0 ? 0 : free_slot;
-        const int idx = have ? match : fs;
-        const bool can = slot >= 0 && nv != 0 && (have || vh[fs] == 0);
-        if (can && !have) {
-          vh[idx] = nv;
-          ins_entry[s] = idx;
-          ins_hash[s] = nv;
-        }
-        if (can) s_cnt[s * MAX_V + idx] += 1.0f;
+        apply_spread_value(s, slot, nv, s_hash, s_cnt, &ins_entry[s]);
+        ins_hash[s] = nv;
       }
     }
     if (tid == 32) {
@@ -503,47 +326,14 @@ fused_place_kernel(const __grid_constant__ FPParams P) {
         umap[e].u2 += L.ask2;
         int tg = P.tg_counts[(size_t)lane * N + r];
         for (int j = 0; j < n_placed; ++j) tg += placed[j] == r;
-        const int f_old = cd.flags[c];
-        const bool elig = (f_old & F_ELIG) != 0;
-        const bool feas = (f_old & F_FEAS0) && !(L.distinct && tg > 0);
-        int flags = f_old & (F_FEAS0 | F_PEN | F_AFF | F_ELIG);
-        bool fits_all = false;
-        if (feas) {
-          const FitParts f =
-              fit_parts<W>(L, P.prio_used, r, umap[e].u0, umap[e].u1,
-                           umap[e].u2, P.totals[r * 3], P.totals[r * 3 + 1],
-                           P.totals[r * 3 + 2]);
-          fits_all = f.fits_all;
-          flags |= F_FEAS | (fits_all ? F_FITS : 0) | (f.needs_pre ? F_PRE : 0);
-          if (fits_all) {
-            bool aa_app;
-            const float aa = anti_affinity(tg, L.desired, aa_app);
-            flags |= aa_app ? F_AA : 0;
-            cd.p4[c] = partial_sum(f.binpack, aa,
-                                   (f_old & F_PEN) ? -1.0f : 0.0f, cd.aff[c]);
-            cd.bin[c] = f.binpack;
-            if (W::PRE) cd.pre[c] = f.pre;
-          }
-        }
-        cd.flags[c] = (uint8_t)flags;
-        // The winner counted as evaluated and neither filtered nor
-        // exhausted; count it as it is now.
-        cnt[0] += (feas ? 1 : 0) - 1;
-        cnt[1] += (!feas && elig) ? 1 : 0;
-        cnt[2] += (feas && !fits_all) ? 1 : 0;
+        rescore_winner<W>(cd, c, L, P.prio_used, r, umap[e].u0, umap[e].u1,
+                          umap[e].u2, P.totals[r * 3], P.totals[r * 3 + 1],
+                          P.totals[r * 3 + 2], tg, cnt);
       }
     }
     __syncthreads();
     // A value new to a table: the candidates holding it leave "no match".
-#pragma unroll
-    for (int s = 0; s < W::SW; ++s) {
-      const int entry = ins_entry[s];
-      if (entry < 0) continue;
-      const int h = ins_hash[s];
-      for (int c = tid; c < nc; c += FP_THREADS)
-        if (cd.sidx[s * P.span + c] == SPR_NOMATCH && cd.shash[s * P.span + c] == h)
-          cd.sidx[s * P.span + c] = (uint8_t)entry;
-    }
+    enter_values<W, FP_THREADS>(cd, nc, P.span, ins_entry, ins_hash);
     __syncthreads();
   }
   cluster.sync();  // keep this CTA's offers alive until every CTA read them

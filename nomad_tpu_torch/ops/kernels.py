@@ -1436,7 +1436,6 @@ verify_plan_fit.launches = 0
 # OFFER_WORDS): score bits, global row, binpack bits, preemption, the three
 # counters, the best row's value hash per spread stanza, padding.
 OFFER_WORDS = 12
-_NO_ROW = 0x7FFFFFFF
 
 
 class ShardLanes(NamedTuple):
@@ -1581,6 +1580,136 @@ def _check_shard(name: str, sh: ShardLanes, b: int, d: int, k: int):
     return n
 
 
+# (batch row, node shard) pairs one ``sharded_place`` launch covers
+# (csrc/sharded_place.cu SP_MAX_PAIRS) and node shards a batch row may have
+# (SP_MAX_SHARDS).
+SHARDED_MAX_PAIRS = 16
+SHARDED_MAX_SHARDS = 32
+
+
+class ShardedLaunchPlan(NamedTuple):
+    """What one ``sharded_place`` dispatch issues, step by step
+    (:func:`_sharded_launch_plan`)."""
+
+    # [step] -> ((device, ((batch row, shard), ...)), ...): one launch of
+    # steps 0..P each, in issue order.
+    launches: tuple
+    # [step] -> ((source device, destination device, batch row, first
+    # shard, end shard), ...): the offer copies issued after the step's
+    # launches, one per run of consecutive shards of a row on the source.
+    copies: tuple
+
+
+def _sharded_launch_plan(groups, n_placements: int) -> ShardedLaunchPlan:
+    """The launches and offer copies of a ``sharded_place`` dispatch over
+    ``groups``: one list of ``torch.device`` per batch row, its node
+    shards' devices in shard order.
+
+    Each step every card launches once over all the (batch row, shard)
+    pairs it holds (more than ``SHARDED_MAX_PAIRS`` pairs take several
+    launches); the last step only writes the result, so there only the
+    launches that hold a row's first shard run.  Shards of one card share
+    the card's offer table; after each step but the last, the offers of a
+    row's shards go to each other card that holds a shard of that row and
+    launches at the next step, one copy per run of consecutive shards."""
+    chunks = {}
+    for i, row in enumerate(groups):
+        for j, dev in enumerate(row):
+            chunks.setdefault(dev, []).append((i, j))
+    per_card = []
+    for dev, pairs in chunks.items():
+        for lo in range(0, len(pairs), SHARDED_MAX_PAIRS):
+            per_card.append((dev, tuple(pairs[lo:lo + SHARDED_MAX_PAIRS])))
+    every = tuple(per_card)
+    last = tuple(c for c in per_card if any(j == 0 for _, j in c[1]))
+    launches = tuple(every if step < n_placements else last
+                     for step in range(n_placements + 1))
+    copies = []
+    for step in range(n_placements + 1):
+        step_copies = []
+        if step < n_placements:
+            nxt = launches[step + 1]
+            for i, row in enumerate(groups):
+                # Cards that launch at the next step over a pair of row i.
+                dsts = []
+                for dev, pairs in nxt:
+                    if dev not in dsts and any(r == i for r, _ in pairs):
+                        dsts.append(dev)
+                j = 0
+                while j < len(row):
+                    src, end = row[j], j + 1
+                    while end < len(row) and row[end] == src:
+                        end += 1
+                    for dst in dsts:
+                        if dst != src:
+                            step_copies.append((src, dst, i, j, end))
+                    j = end
+        copies.append(tuple(step_copies))
+    return ShardedLaunchPlan(launches, tuple(copies))
+
+
+class _SPPair(ctypes.Structure):
+    """One pair's descriptor (csrc/sharded_place.cu ``SPPair``)."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in (
+            "eligible", "attr_hash", "attr_num", "attr_ver", "class_id",
+            "dev_total", "dev_used", "port_words", "dyn_used")]
+        + [("a", ctypes.c_int), ("w", ctypes.c_int)]
+        + [(f, ctypes.c_void_p) for f in (
+            "totals", "used", "prio_used", "delta_rows", "delta_vals",
+            "tg_counts", "spread_counts", "penalties", "req_i", "req_f",
+            "class_eligs", "host_masks", "lane_mask", "scratch", "out")]
+        + [(f, ctypes.c_int) for f in (
+            "n", "off", "b", "d", "k", "row", "shard", "shards")])
+
+
+def sharded_place_shape(n: int, lanes: int, d: int, n_placements: int,
+                        features: Features) -> dict:
+    """The launch shape ``csrc/sharded_place.cu`` takes for a launch over
+    pairs of at most ``n`` rows, ``lanes`` lanes in all and ``d`` delta
+    rows a lane: ``cluster`` (CTAs a (lane, pair) runs on), ``span`` (rows
+    a CTA owns), ``cta_bytes`` (each CTA's state between launches),
+    ``smem`` (dynamic shared memory bytes) and ``tier`` (0 bench, 1 full
+    widths).  Needs the built library (the card)."""
+    key = ("sharded_place", n, lanes, d, n_placements, features)
+    got = _shapes.get(key)
+    if got is None:
+        from .build import load_library
+
+        buf = (ctypes.c_longlong * 5)()
+        load_library("sharded_place").nomad_sharded_place_shape(
+            n, lanes, d, n_placements, features.c_width, features.a_width,
+            features.s_width, int(features.preempt), int(features.ports), buf)
+        got = dict(cluster=buf[0], span=buf[1], cta_bytes=buf[2],
+                   smem=buf[3], tier=buf[4])
+        _shapes[key] = got
+    return got
+
+
+def _pair_descriptor(sh: ShardLanes, row: int, shard: int, shards: int,
+                     scratch: int, out) -> _SPPair:
+    """Pair (``row``, ``shard``)'s descriptor; ``scratch`` is the address
+    of its CTAs' state, ``out`` the row's result on its first shard (else
+    None)."""
+    a = sh.arrays
+    b, d = sh.delta_rows.shape
+    return _SPPair(
+        a.eligible.data_ptr(), a.attr_hash.data_ptr(), a.attr_num.data_ptr(),
+        a.attr_ver.data_ptr(), a.class_id.data_ptr(), a.dev_total.data_ptr(),
+        a.dev_used.data_ptr(), a.port_words.data_ptr(), a.dyn_used.data_ptr(),
+        a.attr_hash.shape[1], a.port_words.shape[1], a.totals.data_ptr(),
+        a.used.data_ptr(),
+        a.prio_used.data_ptr(), sh.delta_rows.data_ptr(),
+        sh.delta_vals.data_ptr(), sh.tg_counts.data_ptr(),
+        sh.spread_counts.data_ptr(), sh.penalties.data_ptr(),
+        sh.req_i.data_ptr(), sh.req_f.data_ptr(), sh.class_eligs.data_ptr(),
+        sh.host_masks.data_ptr(), sh.lane_mask.data_ptr(), scratch,
+        None if out is None else out.data_ptr(),
+        a.used.shape[0], sh.row_offset, b, d, sh.class_eligs.shape[1], row,
+        shard, shards)
+
+
 def sharded_place(groups, n_placements: int,
                   features: Features = FULL_FEATURES):
     """The node-sharded placement scan — the ``sharded_place`` kernel
@@ -1590,13 +1719,12 @@ def sharded_place(groups, n_placements: int,
     type).  Returns one (B_row, n_placements, PACKED_WIDTH) f32 tensor per
     batch row, on the device of that row's first shard.
 
-    On the cards every shard runs ``n_placements + 1`` launches on its
-    own device's current stream.  After each launch it copies its offers
-    into the candidate tables of the other node shards of its row (one
-    table per shard, even where two shards share a card) and records an
-    event; a shard's next launch waits on the events of the others.  The
-    row's first shard waits, last, on the others' final launches, so work
-    queued there after this call sees the whole dispatch done."""
+    On the cards a dispatch is ``n_placements + 1`` steps, each one launch
+    a card over every (batch row, shard) pair there, on the card's current
+    stream (:func:`_sharded_launch_plan`).  Shards of one card read each
+    other's offers from one table on that card; offers bound for another
+    card are copied there after the step's launch, and the destination's
+    next launch waits on the source's event."""
     devs = {sh.arrays.used.device.type for row in groups for sh in row}
     if len(devs) != 1:
         raise ValueError(f"sharded_place: mixed device types {sorted(devs)}")
@@ -1612,87 +1740,99 @@ def sharded_place(groups, n_placements: int,
     from .build import load_library
 
     lib = load_library("sharded_place")
-    runs = []
+    if lib.nomad_sharded_pair_bytes() != ctypes.sizeof(_SPPair):
+        raise RuntimeError("sharded_place: csrc/sharded_place.cu's SPPair "
+                           "disagrees with ops/kernels.py _SPPair")
+    n_rows = len(groups)
+    shards_max = max(len(row) for row in groups)
+    if shards_max > SHARDED_MAX_SHARDS:
+        raise ValueError(f"sharded_place: {shards_max} node shards a batch "
+                         f"row, at most {SHARDED_MAX_SHARDS}")
+    b_max = d_max = 0
     for row in groups:
         head = row[0]
         b, d = head.delta_rows.shape
         k = head.class_eligs.shape[1]
         _check_delta_width("sharded_place", head.delta_rows)
-        n_sh = len(row)
-        shards = []
         for si, sh in enumerate(row):
-            dev = sh.arrays.used.device
-            n = _check_shard(f"shard {si}", sh, b, d, k)
-            buf = (ctypes.c_longlong * 2)()
-            lib.nomad_sharded_place_shape(n, d, n_placements, buf)
-            with _on(dev):
-                table = torch.empty((2, n_sh, b, OFFER_WORDS),
-                                    dtype=torch.int32, device=dev)
-                state = torch.empty((b, int(buf[0])), dtype=torch.int32,
-                                    device=dev)
-                out = torch.empty((b, n_placements, PACKED_WIDTH),
-                                  dtype=torch.float32, device=dev)
-            a = sh.arrays
-            head_args = (*_matrix_ptrs(a, a.used),
-                         sh.delta_rows.data_ptr(), sh.delta_vals.data_ptr(),
-                         sh.tg_counts.data_ptr(),
-                         sh.spread_counts.data_ptr(),
-                         sh.penalties.data_ptr(), sh.req_i.data_ptr(),
-                         sh.req_f.data_ptr(), sh.class_eligs.data_ptr(),
-                         sh.host_masks.data_ptr(), sh.lane_mask.data_ptr(),
-                         table.data_ptr(), state.data_ptr(), out.data_ptr(),
-                         n, a.attr_hash.shape[1], a.port_words.shape[1],
-                         sh.row_offset, b, d, k, n_placements, n_sh, si)
-            tail_args = (features.c_width, features.a_width,
-                         features.s_width, int(features.preempt),
-                         int(features.ports))
-            shards.append(dict(dev=dev, table=table, state=state, out=out,
-                               head=head_args, tail=tail_args, event=None))
-        runs.append(shards)
+            _check_shard(f"shard {si}", sh, b, d, k)
+        b_max, d_max = max(b_max, b), max(d_max, d)
+    plan = _sharded_launch_plan(
+        [[sh.arrays.used.device for sh in row] for row in groups],
+        n_placements)
+    tables, outs, launches = {}, [], []
+    for row in groups:
+        with _on(row[0].arrays.used.device):
+            outs.append(torch.empty(
+                (row[0].delta_rows.shape[0], n_placements, PACKED_WIDTH),
+                dtype=torch.float32, device=row[0].arrays.used.device))
+    for dev, pairs in plan.launches[0]:
+        lanes = sum(groups[i][j].delta_rows.shape[0] for i, j in pairs)
+        n_max = max(groups[i][j].arrays.used.shape[0] for i, j in pairs)
+        with _on(dev):
+            shape = sharded_place_shape(n_max, lanes, d_max, n_placements,
+                                        features)
+            if dev not in tables:
+                tables[dev] = torch.empty(
+                    (2, n_rows, shards_max, b_max, OFFER_WORDS),
+                    dtype=torch.int32, device=dev)
+            # One scratch for the launch: each pair's CTAs' state, b x C x
+            # cta_bytes bytes a pair, back to back.
+            per_lane = shape["cluster"] * shape["cta_bytes"]
+            scratch = torch.empty((lanes * per_lane,), dtype=torch.uint8,
+                                  device=dev)
+            descs, at = (_SPPair * len(pairs))(), scratch.data_ptr()
+            for q, (i, j) in enumerate(pairs):
+                sh = groups[i][j]
+                descs[q] = _pair_descriptor(sh, i, j, len(groups[i]), at,
+                                            outs[i] if j == 0 else None)
+                at += sh.delta_rows.shape[0] * per_lane
+        launches.append(((dev, pairs), descs, scratch))
+    tail = (features.c_width, features.a_width, features.s_width,
+            int(features.preempt), int(features.ports))
+    # Each launch's arguments but the step and the stream, fixed for the
+    # dispatch.
+    fixed = {chunk: (ctypes.addressof(descs), len(chunk[1]),
+                    tables[chunk[0]].data_ptr(), n_rows, shards_max, b_max,
+                    n_placements)
+            for chunk, descs, _ in launches}
+    events = {}
     for step in range(n_placements + 1):
-        for shards in runs:
-            for si, shd in enumerate(shards):
-                with _on(shd["dev"]):
-                    stream = torch.cuda.current_stream(shd["dev"])
-                    for sj, other in enumerate(shards):
-                        if sj != si and other["event"] is not None:
-                            stream.wait_event(other["event"])
-                    rc = lib.nomad_sharded_place(
-                        *shd["head"], step, *shd["tail"],
-                        _stream(shd["dev"]))
-                if rc != 0:
-                    raise RuntimeError(
-                        f"sharded_place launch failed: CUDA error {rc}")
-                sharded_place.launches += 1
-        for shards in runs:
-            for si, shd in enumerate(shards):
-                with _on(shd["dev"]):
-                    if step < n_placements:
-                        # The exchange: this shard's offers into the
-                        # other shards' tables (a peer copy between
-                        # cards, a device copy on one).
-                        src = shd["table"][step & 1, si]
-                        for sj, other in enumerate(shards):
-                            if sj != si:
-                                other["table"][step & 1, si].copy_(
-                                    src, non_blocking=True)
-                                sharded_place.copies += 1
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(shd["dev"]))
-                    shd["event"] = ev
-    outs = []
-    for shards in runs:
-        lead = shards[0]
-        with _on(lead["dev"]):
-            stream = torch.cuda.current_stream(lead["dev"])
-            for other in shards[1:]:
-                stream.wait_event(other["event"])
-        outs.append(lead["out"])
+        waits = {}
+        if step > 0:
+            for src, dst, *_ in plan.copies[step - 1]:
+                waits.setdefault(dst, set()).add(src)
+        for chunk in plan.launches[step]:
+            dev = chunk[0]
+            with _on(dev):
+                if dev in waits:
+                    stream = torch.cuda.current_stream(dev)
+                    for src in waits[dev]:
+                        stream.wait_event(events[src])
+                rc = lib.nomad_sharded_place(*fixed[chunk], step, *tail,
+                                             _stream(dev))
+            if rc != 0:
+                raise RuntimeError(
+                    f"sharded_place launch failed: CUDA error {rc}")
+            sharded_place.launches += 1
+        sources = []
+        for src, dst, i, lo, hi in plan.copies[step]:
+            with _on(src):
+                tables[dst][step & 1, i, lo:hi].copy_(
+                    tables[src][step & 1, i, lo:hi], non_blocking=True)
+            sharded_place.copies += 1
+            if src not in sources:
+                sources.append(src)
+        for src in sources:
+            with _on(src):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(src))
+                events[src] = ev
     return outs
 
 
 sharded_place.launches = 0
-# Offer copies between shards' tables (the exchange; data movement).
+# Offer copies between cards' tables (the exchange; data movement).
 sharded_place.copies = 0
 
 

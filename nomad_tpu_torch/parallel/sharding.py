@@ -13,11 +13,12 @@ the mesh is an ordered list of ``torch.device``s shaped the same way
   sync_sharded`` with one ``index_copy_`` per field into the owning
   shard's tensors (:func:`make_sharded_row_scatter`);
 * the three programs (:func:`sharded_schedule_step`,
-  :func:`sharded_place_batch`, :func:`sharded_fused_place_batch`) launch
-  the ``sharded_place`` kernel on every shard (``ops/kernels.py``
-  :func:`~nomad_tpu_torch.ops.kernels.sharded_place`), whose candidate
-  tables the shards exchange by copies between launches, and the fused
-  one re-verifies the winners with the row-windowed ``allocs_fit_verify``
+  :func:`sharded_place_batch`, :func:`sharded_fused_place_batch`) run
+  the ``sharded_place`` kernel (``ops/kernels.py``
+  :func:`~nomad_tpu_torch.ops.kernels.sharded_place`), one launch a card
+  a step over every shard there, the shards of a card sharing one offer
+  table and offers copied only between cards, and the fused one
+  re-verifies the winners with the row-windowed ``allocs_fit_verify``
   on every node shard, the verdicts combined by the lead shard's launch.
 
 Batch shards are data parallel: lanes ``[i·B/b, (i+1)·B/b)`` run on the

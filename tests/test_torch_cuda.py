@@ -726,11 +726,15 @@ def test_sharded_programs_match_unsharded_on_the_card(cuda, n_dev):
     host = [a.cpu().numpy() for a in args[2:]]
     mesh = sharding.make_mesh(devices=[cuda] * n_dev)
     sharded = sharding.shard_matrix_arrays(mesh, arrays)
-    before = (k.sharded_place.launches, k.allocs_fit_verify.window_launches)
+    before = (k.sharded_place.launches, k.allocs_fit_verify.window_launches,
+              k.sharded_place.copies)
     got = sharding.sharded_fused_place_batch(mesh, SCAN)(
         sharded, *host, features=feats)
     assert torch.equal(got, k.fused_place_batch(*args, SCAN, feats))
-    assert k.sharded_place.launches == before[0] + (SCAN + 1) * n_dev
+    # One launch a step over every virtual shard of the card; offers never
+    # leave the card.
+    assert k.sharded_place.launches == before[0] + SCAN + 1
+    assert k.sharded_place.copies == before[2]
     assert k.allocs_fit_verify.window_launches == (
         before[1] + sharding.node_shard_count(mesh))
     staged = sharding.sharded_place_batch(mesh, SCAN)(sharded, *host[:-1])
@@ -755,3 +759,47 @@ def test_sharded_programs_match_unsharded_on_the_card(cuda, n_dev):
     groups = sharding._lane_groups(sharded, *host)
     for row, out in zip(groups, k.sharded_place(groups, SCAN, feats)):
         assert torch.equal(out, k.sharded_place_plain(row, SCAN, feats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [4, 8])
+@pytest.mark.parametrize("case", edge_cases.SHARDED_CASES)
+def test_sharded_place_edge_cases_on_the_card(cuda, case, n_dev):
+    """The cases of tests/torch_edge_cases.py SHARDED_CASES (lane 3 dead)
+    on virtual shards of the card, at P = 1 and P = 64: ``sharded_place``
+    equals its plain version, the fused and staged sharded programs the
+    unsharded kernels, every column exactly; P + 1 launches and no offer
+    copy a dispatch.  The shards' rows are a multiple of no CTA span."""
+    from nomad_tpu_torch.parallel import sharding
+
+    w = edge_cases.sharded_case(edge_cases.port_pkg(), case)
+    arrays = w["m"].sync()
+    assert arrays.used.device.type == "cuda"
+    ri, rf = k.pack_requests(w["reqs"])
+    host = [w["drows"], w["dvals"], w["tg"], w["counts"], w["pen"], ri, rf,
+            w["ce"], w["hm"], w["lane_mask"]]
+    on = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in host]
+    feats = k.features_of(w["reqs"])
+    mesh = sharding.make_mesh(devices=[cuda] * n_dev)
+    sharded = sharding.shard_matrix_arrays(mesh, arrays)
+    b_row = w["lane_mask"].shape[0] // mesh.shape[0]
+    shape = k.sharded_place_shape(
+        sharded.n_local, b_row * n_dev, w["drows"].shape[1], SCAN, feats)
+    assert sharded.n_local % shape["span"] != 0
+    groups = sharding._lane_groups(sharded, *host)
+    for p in (1, 64):
+        k.reset_counts()
+        outs = k.sharded_place(groups, p, feats)
+        assert k.sharded_place.launches == p + 1
+        assert k.sharded_place.copies == 0
+        for row, out in zip(groups, outs):
+            assert torch.equal(out, k.sharded_place_plain(row, p, feats))
+        got = sharding.sharded_fused_place_batch(mesh, p)(
+            sharded, *host, features=feats)
+        assert torch.equal(got, k.fused_place_batch(
+            arrays, arrays.used, *on, p, feats))
+        staged = sharding.sharded_place_batch(mesh, p)(sharded, *host[:-1])
+        assert torch.equal(staged, k.place_batch(
+            arrays, arrays.used, *on[:-1], p))
+        dead = torch.from_numpy(~w["lane_mask"]).to(cuda)
+        assert (got[dead][:, :, k.PACKED_ROW] == -1).all()

@@ -7,7 +7,9 @@ fixture); both packages get the same seeded inputs carried across with
 ``state/carry.py``.  Contract: rows, counters, preemption flags and
 VERIFIED exact; scores and binpack within rtol 1e-4 / atol 1e-5.
 
-* ``sharded_place_batch`` against JAX's on the same mesh shape.
+* ``sharded_place_batch`` against JAX's on the same mesh shape, on the
+  world batch and on ``torch_edge_cases.SHARDED_CASES`` (what the card's
+  hoisted scan over shards must get right).
 * ``sharded_fused_place_batch`` against JAX's unsharded
   ``fused_place_batch`` (the JAX sharded fused program does not trace on
   this JAX, ROADMAP R1), with colliding lanes so VERIFIED 0.0 appears.
@@ -47,6 +49,7 @@ from nomad_tpu_torch.ops import kernels as tk
 from nomad_tpu_torch.parallel import sharding as tsh
 from nomad_tpu_torch.server.server import Server, ServerConfig
 
+import torch_edge_cases as edge_cases
 from torch_parity import (
     ATOL,
     RTOL,
@@ -54,6 +57,7 @@ from torch_parity import (
     assert_packed_equal,
     build_cluster,
     compile_lanes,
+    jax_edge_pkg,
     lane_jobs,
     lane_operands,
     port_matrix,
@@ -116,6 +120,61 @@ def test_sharded_place_batch_matches_jax(world, eight_devices, n_dev, batch):
     assert tk.sharded_place_plain.calls == batch
     assert_packed_equal(got, want)
     assert (want[:, :, jk.PACKED_ROW] >= 0).sum() > reqs.ask.shape[0]
+
+
+@pytest.mark.parametrize("n_dev,batch", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("case", edge_cases.SHARDED_CASES)
+def test_sharded_edge_cases_match_jax(eight_devices, case, n_dev, batch):
+    """Each case of torch_edge_cases.SHARDED_CASES: the port's staged
+    sharded program (the plain version through the shard loop) against
+    JAX's and against the port's unsharded ``place_batch`` (rows and
+    counters exact: on the CPU the plain version's exp2 may round a shard's
+    rows apart from the whole axis's in the last bit); and the case holds
+    what it is there for."""
+    w = edge_cases.sharded_case(jax_edge_pkg(), case)
+    m, reqs, scan = w["m"], w["reqs"], w["scan"]
+    ops = (w["drows"], w["dvals"], w["tg"], w["counts"], w["pen"], w["ce"],
+           w["hm"])
+    arrays = m.sync()
+    jmesh = jmake_mesh(n_dev, batch=batch)
+    want = np.asarray(jsharded_place_batch(jmesh, scan)(
+        jshard(jmesh, arrays), jshard(jmesh, arrays).used, *ops[:5],
+        jax.tree_util.tree_map(jnp.asarray, reqs), *ops[5:]))
+    pa = port_matrix(m).sync()
+    mesh = port_mesh(n_dev, batch)
+    ri, rf = port_requests(reqs)
+    tk.reset_counts()
+    got = tsh.sharded_place_batch(mesh, scan)(
+        tsh.shard_matrix_arrays(mesh, pa), *ops[:5], ri.numpy(), rf.numpy(),
+        *ops[5:])
+    assert tk.sharded_place_plain.calls == batch
+    assert_packed_equal(got.numpy(), want)
+    assert_packed_equal(got.numpy(), tk.place_batch(
+        pa, pa.used, *(t(x) for x in ops[:5]), ri, rf, t(ops[5]), t(ops[6]),
+        scan).numpy())
+    rows = want[:, :, jk.PACKED_ROW].astype(int)
+    n_local = edge_cases.SHARDED_ROWS // mesh.shape[1]
+    if case == "spread_mid_scan":
+        # A rack new to a lane's table enters after step 0, from a winner
+        # on another shard than an earlier pick's.
+        racks = [[edge_cases.sharded_rack(r) for r in lane] for lane in rows]
+        assert any(racks[0][t] not in racks[0][:t] + ["r0", "r5"]
+                   and rows[0][t] // n_local != rows[0][0] // n_local
+                   for t in range(1, scan))
+    elif case == "distinct_hosts":
+        for lane in range(6):
+            picked = rows[lane][rows[lane] >= 0]
+            assert len(set(picked)) == len(picked)
+        assert len({r // n_local for r in rows[:6].ravel() if r >= 0}) > 1
+    elif case == "cross_shard_tie":
+        assert rows[0, 0] == 37 and rows[4, 0] == 24 and rows[6, 0] == 50
+    elif case == "empty_shard":
+        assert (rows[5] == -1).all() and (rows[7] == -1).all()
+        assert (rows[6] >= 175).all()
+        assert not ((rows >= 50) & (rows < 125)).any()
+    elif case == "delta_cap":
+        assert w["drows"].shape[1] == tk.MAX_LANE_DELTAS
+    assert (rows >= 0).sum() > scan
 
 
 def collision_world():

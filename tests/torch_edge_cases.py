@@ -27,6 +27,11 @@ The cases stress what the kernels' tiling and hoisting make risky:
 * ``fails_first`` — lanes whose scan fails at step 0 (an ask that never
   fits, a host mask with no node), a distinct_hosts lane that already
   holds allocs on its best nodes, and preemption.
+
+:func:`sharded_case` builds the node-sharded scan's cases the same way
+(``SHARDED_CASES``: spread values entering mid-scan across shards,
+distinct_hosts, ties across shards, shards with no candidate, lanes at
+the delta cap).
 """
 
 import types
@@ -230,6 +235,168 @@ def build(pkg, name, seed=23):
     return dict(m=m, reqs=reqs, drows=drows, dvals=dvals, tg=tg,
                 counts=counts, pen=pen, ce=ce, hm=hm, lane_mask=lane_mask,
                 scan=SCAN)
+
+
+# ---------------------------------------------------------------------------
+# sharded_place: what the hoisted scan over node shards must get right
+# ---------------------------------------------------------------------------
+
+# * ``spread_mid_scan`` — spread lanes whose value tables start with one or
+#   two racks: every rack lies on every node shard (rack = (row // 10) % 8),
+#   so a winner on one shard enters a value mid-scan that moves candidates
+#   on the others off "no match".
+# * ``distinct_hosts`` — distinct_hosts lanes (tg counts on some rows)
+#   whose winners land on several shards, each row once.
+# * ``cross_shard_tie`` — identical empty nodes: the first pick ties on
+#   every row a lane's host mask keeps, across shards (rows 37 and 137,
+#   and the rows either side of each eighth's boundary), and the lowest
+#   global row must win.
+# * ``empty_shard`` — rows [50, 100) masked for every lane and [100, 125)
+#   down: node shards with no candidate; a lane with no candidate anywhere
+#   and a lane whose only candidates are on the last eighth.
+# * ``delta_cap`` — 1,024 in-flight delta rows a lane (MAX_LANE_DELTAS):
+#   rows on every shard, repeats, padding.
+# Every case has 8 lanes (lane 3 dead where the caller uses the mask) on
+# 200 rows: 25 rows a node shard at 8 shards, a multiple of no CTA span.
+SHARDED_CASES = ("spread_mid_scan", "distinct_hosts", "cross_shard_tie",
+                 "empty_shard", "delta_cap")
+SHARDED_ROWS = 200
+SHARDED_SCAN = 6
+
+
+def sharded_rack(row: int) -> str:
+    """The rack of a row of a sharded case's matrix."""
+    return f"r{(row // 10) % 8}"
+
+
+def _sharded_jobs(pkg, name):
+    C, S, T = pkg.Constraint, pkg.Spread, pkg.SpreadTarget
+    rack = S(attribute="${attr.rack}", weight=70)
+    dcs = S(attribute="${node.datacenter}", weight=30,
+            targets=[T(value="dc1", percent=70), T(value="dc2", percent=30)])
+    distinct = C(operand="distinct_hosts")
+    if name == "spread_mid_scan":
+        return [
+            (_job(pkg, cpu=250, spreads=[rack]), "binpack", False),
+            (_job(pkg, cpu=400, spreads=[rack]), "spread", False),
+            (_job(pkg, cpu=300, spreads=[rack, dcs]), "binpack", False),
+            (_job(pkg, cpu=200, spreads=[dcs]), "binpack", False),
+            (_job(pkg, cpu=250, spreads=[rack]), "binpack", False),
+            (_job(pkg, cpu=500, count=3, spreads=[rack]), "binpack", False),
+            (_job(pkg, cpu=350, spreads=[rack, dcs]), "spread", False),
+            (_job(pkg, cpu=150, spreads=[rack]), "binpack", False),
+        ]
+    if name == "distinct_hosts":
+        return [(_job(pkg, cpu=200 + 150 * i, constraints=[distinct]),
+                 "spread" if i == 4 else "binpack", False)
+                for i in range(6)] + [
+            (_job(pkg, cpu=300), "binpack", False),
+            (_job(pkg, cpu=3500, mem=6000, priority=90,
+                  constraints=[distinct]), "binpack", True),
+        ]
+    if name == "cross_shard_tie":
+        return [(_job(pkg, cpu=300 + 50 * (i % 3)), "binpack", False)
+                for i in range(7)] + [
+            (_job(pkg, cpu=300, spreads=[rack]), "binpack", False)]
+    if name == "empty_shard":
+        return [(_job(pkg, cpu=300 + 100 * i), "binpack", False)
+                for i in range(7)] + [
+            (_job(pkg, cpu=100000, mem=100), "binpack", False)]
+    if name == "delta_cap":
+        return [(_job(pkg, cpu=200 + 100 * i), "binpack", False)
+                for i in range(7)] + [
+            (_job(pkg, cpu=300, spreads=[rack]), "binpack", False)]
+    raise ValueError(name)
+
+
+def sharded_case(pkg, name, seed=37):
+    """Case ``name`` of SHARDED_CASES with ``pkg``'s types, in
+    :func:`build`'s form (``m``, ``reqs``, the numpy lane operands,
+    ``lane_mask``, ``scan``)."""
+    rng = np.random.default_rng(seed)
+    n = SHARDED_ROWS
+    identical = name == "cross_shard_tie"
+    m = pkg.NodeMatrix(capacity=n)
+    nodes = []
+    for i in range(n):
+        node = _node(pkg, rng, i, identical)
+        node.attributes = dict(node.attributes)
+        node.attributes["rack"] = sharded_rack(i)
+        if name == "empty_shard" and 100 <= i < 125:
+            node.status = "down"
+        m.upsert_node(node)
+        nodes.append(node)
+    if not identical:
+        for i in rng.choice(n, size=70, replace=False):
+            m.add_alloc(pkg.Allocation(
+                node_id=nodes[i].id,
+                job=pkg.Job(priority=int(rng.integers(10, 90))),
+                resources=pkg.Resources(
+                    cpu=int(rng.integers(100, 2500)),
+                    memory_mb=int(rng.integers(64, 4096)))))
+    enc = pkg.RequestEncoder(m)
+    comp = [enc.compile(j, j.task_groups[0], algorithm=alg,
+                        preemption_enabled=pre)
+            for j, alg, pre in _sharded_jobs(pkg, name)]
+    reqs = [c.request for c in comp]
+    reqs = type(reqs[0])(*[np.stack(f) for f in zip(*reqs)])
+    b = reqs.ask.shape[0]
+    S, V = pkg.MAX_SPREADS, pkg.MAX_SPREAD_VALUES
+    h = pkg.stable_hash
+    s_hash = np.array(reqs.s_value_hash, copy=True)
+    counts = np.zeros((b, S, V), np.float32)
+    d = VERIFY_MAX_DELTAS if name == "delta_cap" else 4
+    drows = np.full((b, d), -1, np.int32)
+    dvals = np.zeros((b, d, 3), np.float32)
+    tg = np.zeros((b, n), np.int32)
+    pen = np.zeros((b, n), bool)
+    ce = np.ones((b, max(2, len(m.class_ids))), bool)
+    hm = np.ones((b, n), bool)
+    lane_mask = np.ones((b,), bool)
+    lane_mask[3] = False
+
+    if name == "spread_mid_scan":
+        # Tables that hold one or two racks (the rest enter mid-scan), one
+        # with a free entry between used ones.
+        for lane in (0, 4, 7):
+            s_hash[lane, 0, :3] = [h("r0"), 0, h("r5")]
+            counts[lane, 0, :3] = [3, 0, 1]
+        s_hash[5, 0, 0] = h("r2")
+        counts[5, 0, 0] = 2
+        drows[1, :2] = [15, 115]
+        dvals[1, :2] = [[400, 300, 0], [200, 100, 0]]
+    elif name == "distinct_hosts":
+        tg[:, ::7] = 1
+        tg[2, :] = 0
+        hm[5, :40] = False
+        drows[0, :3] = [10, 110, 10]
+        dvals[0, :3] = [[300, 200, 0], [100, 100, 0], [50, 0, 0]]
+    elif name == "cross_shard_tie":
+        hm[0, :] = False
+        hm[0, [37, 137]] = True
+        hm[1, :] = False
+        hm[1, [199, 60, 120]] = True
+        hm[2, :100] = False
+        hm[4, :] = False
+        hm[4, [24, 25, 49, 50, 74, 75]] = True
+        pen[5, :100] = True
+        hm[6, :] = False
+        hm[6, [150, 50]] = True
+    elif name == "empty_shard":
+        hm[:, 50:100] = False
+        hm[5, :] = False
+        hm[5, 100:125] = True  # only down nodes: no candidate anywhere
+        hm[6, :175] = False
+        tg[1, 150:] = 2
+    elif name == "delta_cap":
+        drows[:] = rng.choice(n, (b, d))
+        drows[:, ::9] = -1
+        drows[:, 1::13] = 42  # one row many times
+        dvals[:] = rng.integers(0, 40, (b, d, 3))
+    reqs = reqs._replace(s_value_hash=s_hash)
+    return dict(m=m, reqs=reqs, drows=drows, dvals=dvals, tg=tg,
+                counts=counts, pen=pen, ce=ce, hm=hm, lane_mask=lane_mask,
+                scan=SHARDED_SCAN)
 
 
 # ---------------------------------------------------------------------------
