@@ -126,7 +126,11 @@ Phases:
    (recorded through ``server/plan_apply.py:host_verify``), launch counts
    zeroed around those calls; against its plain version and
    ``host_verify`` on every row (and the applier's own verdicts); every
-   output byte 0 or 1; its times and bound at K=10,000.
+   output byte 0 or 1; its times and bound at K=10,000, and the
+   wrapper's host microseconds a call split by part (the memoised column
+   check, the operand checks, the library entry, the output allocation,
+   the stream handle, the ``ctypes`` launch, the CUDA events' floor on an
+   empty function).
 9. restart — first a server without a ``data_dir`` registers 10,000
    ``server_node``s and takes a 64-job burst: the baseline of the
    journaled run.  Then a ``Server(device="cuda")`` with a ``data_dir`` in a
@@ -276,7 +280,16 @@ Phases:
    ``sharded_place`` (the kernel, one launch a card a step over every
    shard there: P + 1 launches and no offer copy on one card),
    ``sharded_usage`` and the windowed
-   ``allocs_fit_verify`` against their plain versions.  Then live servers: one on ``["cuda:0"] * 4``
+   ``allocs_fit_verify`` against their plain versions.  14b times the
+   kernels on node shard 1 of x4 (``sharded_usage`` after the feature
+   batch's step, B=64, with its wrapper's host split) and 14b' times
+   ``sharded_usage`` at B=4,096 on node shard 1 of x4 (5,120 rows) and
+   of x8 (2,560 rows), n_batch 2, on phase 7's picks (``score_batch`` on
+   a fresh bench cluster, packed as the step packs them) and on picks
+   spread over several rows of a CTA (``SPREAD_USAGE_CASES`` of
+   ``tests/torch_edge_cases.py``, node shard 1 of x4): bit for bit
+   against its plain version, CUDA events, device time and bound beside
+   ``index_add``'s events and device time.  Then live servers: one on ``["cuda:0"] * 4``
    and one on the card alone register the server phases' 10,000 nodes
    with the same usage, place 16 service jobs one at a time onto the
    same nodes, and take a burst of 64 (evals/s of both; with several
@@ -2570,20 +2583,19 @@ def system_wrapper_split(arrays, used0, ri, rf, ce, hm, card: str) -> dict:
     """Where the host time of one ``system_feasible`` call goes: the CUDA
     events' floor on an empty function, the wrapper's host microseconds
     a call, and each of its parts alone — the matrix check (memoised with
-    the columns' pointers), the four operand checks, ``load_library``
-    behind its import, the output allocation, the stream handle, the
+    the columns' pointers), the four operand checks, the library entry
+    (resolved once), the output allocation, the stream handle, the
     ``ctypes`` launch — beside what the earlier wrapper did instead (a
     Stream object for the handle)."""
     import torch
 
-    from nomad_tpu_torch.ops import build
     from nomad_tpu_torch.ops import kernels as k
 
     dev = used0.device
     n = int(used0.shape[0])
     kk = int(ce.shape[0])
     _, cols = k._checked_cols(arrays, used0, dev)
-    fn = build.load_library("system_feasible").nomad_system_feasible
+    fn = k._entry("system_feasible", "nomad_system_feasible")
     out = torch.empty((2, n), dtype=torch.bool, device=dev)
     a, w = int(arrays.attr_hash.shape[1]), int(arrays.port_words.shape[1])
 
@@ -2598,16 +2610,12 @@ def system_wrapper_split(arrays, used0, ri, rf, ce, hm, card: str) -> dict:
            ce.data_ptr(), hm.data_ptr(), out.data_ptr(), n, a, w, kk,
            k._stream(dev))
 
-    def library():
-        from nomad_tpu_torch.ops.build import load_library
-
-        load_library("system_feasible")
-
     parts = {
         "wrapper": lambda: k.system_feasible(arrays, used0, ri, rf, ce, hm),
         "check_matrix": lambda: k._checked_cols(arrays, used0, dev),
         "four_checks": checks,
-        "load_library": library,
+        "entry": lambda: k._entry("system_feasible",
+                                  "nomad_system_feasible"),
         "torch_empty": lambda: torch.empty((2, n), dtype=torch.bool,
                                            device=dev),
         "stream": lambda: k._stream(dev),
@@ -2615,12 +2623,89 @@ def system_wrapper_split(arrays, used0, ri, rf, ce, hm, card: str) -> dict:
         "earlier_stream_object":
             lambda: torch.cuda.current_stream().cuda_stream,
     }
+    return host_split("system_feasible", parts, card)
+
+
+def host_split(label: str, parts: dict, card: str) -> dict:
+    """Host microseconds a call of each of ``parts`` (the wrapper first,
+    then its pieces alone), with the CUDA events' floor on an empty
+    function and the wrapper by CUDA events, logged as one line."""
     split = {name: host_us_per_call(f) for name, f in parts.items()}
     split["event_floor_us"] = time_cuda(lambda: None, runs=50) * 1e3
     split["event_us"] = time_cuda(parts["wrapper"], runs=50) * 1e3
-    log("timing system_feasible host split (us a call): " + ", ".join(
+    log(f"timing {label} host split (us a call): " + ", ".join(
         f"{name} {us:.3f}" for name, us in split.items()) + f" (card: {card})")
     return split
+
+
+def plan_fit_wrapper_split(arrays, rows, deltas, er, card: str) -> dict:
+    """Where the host time of one ``verify_plan_fit`` call goes: the
+    memoised column check, the three operand checks, the library entry
+    (resolved once), the output allocation, the stream handle and the
+    ``ctypes`` launch."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    dev = rows.device
+    n, cols = k._plan_cols(arrays, dev)
+    kk = int(rows.shape[0])
+    fn = k._entry("verify_plan_fit", "nomad_verify_plan_fit")
+    out = torch.empty(kk, dtype=torch.bool, device=dev)
+
+    def checks():
+        k._check("rows", rows, torch.int32, (kk,), dev)
+        k._check("deltas", deltas, torch.float32, (kk, 3), dev)
+        k._check("eligible_required", er, torch.bool, (kk,), dev)
+
+    def launch():
+        fn(cols, rows.data_ptr(), deltas.data_ptr(), er.data_ptr(),
+           out.data_ptr(), kk, n, k._stream(dev))
+
+    return host_split("verify_plan_fit", {
+        "wrapper": lambda: k.verify_plan_fit(arrays, rows, deltas, er),
+        "plan_cols": lambda: k._plan_cols(arrays, dev),
+        "three_checks": checks,
+        "entry": lambda: k._entry("verify_plan_fit", "nomad_verify_plan_fit"),
+        "torch_empty": lambda: torch.empty(kk, dtype=torch.bool, device=dev),
+        "stream": lambda: k._stream(dev),
+        "ctypes_launch": launch,
+    }, card)
+
+
+def usage_wrapper_split(used, packed, req_f, n_batch: int, off: int,
+                        card: str) -> dict:
+    """Where the host time of one ``sharded_usage`` call goes: the lane
+    limit and three operand checks, the library entry (resolved once),
+    the output allocation, the stream handle and the ``ctypes`` launch."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    dev = used.device
+    n, b, p = int(used.shape[0]), int(packed.shape[0]), int(packed.shape[1])
+    fn = k._entry("sharded_place", "nomad_sharded_usage")
+    out = torch.empty_like(used)
+
+    def checks():
+        k._check_usage_lanes(b)
+        k._check("used", used, torch.float32, (n, 3), dev)
+        k._check("packed", packed, torch.float32, (b, p, k.PACKED_WIDTH),
+                 dev)
+        k._check("req_f", req_f, torch.float32, (b, k.REQ_FLOAT_WIDTH), dev)
+
+    def launch():
+        fn(used.data_ptr(), packed.data_ptr(), req_f.data_ptr(),
+           out.data_ptr(), n, off, b, p, n_batch, k._stream(dev))
+
+    return host_split("sharded_usage", {
+        "wrapper": lambda: k.sharded_usage(used, packed, req_f, n_batch, off),
+        "checks": checks,
+        "entry": lambda: k._entry("sharded_place", "nomad_sharded_usage"),
+        "torch_empty_like": lambda: torch.empty_like(used),
+        "stream": lambda: k._stream(dev),
+        "ctypes_launch": launch,
+    }, card)
 
 
 # ---------------------------------------------------------------------------
@@ -2964,12 +3049,11 @@ class HostVerifyRecorder:
         self.module.host_verify = self.real
 
 
-def plan_verify_cases(m, recorder):
-    """(label, host columns, rows, deltas, elig_required, applier verdicts
-    or None): (a) a seeded plan of K=10,000 rows on the phase-2 cluster
-    (padding, deltas past the node's room, negative deltas, ineligible
-    nodes, a mixed elig_required), (b) each plan check the applier made
-    for node-exporter in the system phase."""
+def seeded_plan(m):
+    """(host columns, rows, deltas, elig_required): a seeded plan of
+    K=10,000 rows on cluster ``m`` (padding, deltas past the node's room,
+    negative deltas, exact room, ineligible nodes, a mixed
+    elig_required)."""
     rng = np.random.default_rng(31)
     host = m.snapshot_host()
     cols = {"used": np.array(host["used"]), "totals": np.array(host["totals"]),
@@ -2986,7 +3070,15 @@ def plan_verify_cases(m, recorder):
     exact = rng.random(k_rows) < 0.02
     deltas[exact] = room[exact]
     elig_required = rng.random(k_rows) < 0.6
-    cases = [("seeded", cols, rows, deltas, elig_required, None)]
+    return cols, rows, deltas, elig_required
+
+
+def plan_verify_cases(m, recorder):
+    """(label, host columns, rows, deltas, elig_required, applier verdicts
+    or None): (a) the seeded plan of K=10,000 rows on the phase-2 cluster
+    (``seeded_plan``), (b) each plan check the applier made for
+    node-exporter in the system phase."""
+    cases = [("seeded", *seeded_plan(m), None)]
     for i, c in enumerate(recorder.calls):
         cases.append((f"node-exporter plan {i}",
                       {f: c[f] for f in ("used", "totals", "eligible")},
@@ -3066,10 +3158,12 @@ def phase_plan_verify(card: str, m, recorder, results: dict) -> None:
     plain_ms = time_cuda(lambda: k.verify_plan_fit_plain(*args), runs=20)
     work = verify_plan_fit_work(cols, rows)
     b_ms, by = bound(*work)
+    split = plan_fit_wrapper_split(*args, card)
     results["verify_plan_fit"] = {
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "device_us": dev_us, "matches_plain": True,
+        "host_split_us": split,
     }
     log(f"timing verify_plan_fit K={len(rows)}: {ms:.4f} ms by CUDA events, "
         f"{fmt_us(dev_us)} a launch on the device (profiler); plain version "
@@ -3437,7 +3531,7 @@ def phase_restart(card: str, results: dict) -> None:
         cols = srv4.matrix._device
         if any(a is b for a, b in zip(cols, old)):
             raise AssertionError("restart: the install kept a device column")
-        if not all(r() is t for r, t in zip(k._checked_matrices[0][0], cols)):
+        if not all(r() is t for r, t in zip(k._checked_matrices.entries[0][0], cols)):
             raise AssertionError("restart: the kernels' memoised columns are "
                                  "not the installed matrix's")
         out["installed_launches"] = launches
@@ -5537,6 +5631,201 @@ def check_usage_launches(launches: int) -> None:
         raise AssertionError("sharded: the step never launched sharded_usage")
 
 
+def device_us_per_call(fn, runs: int = 20,
+                       passes: int = 3) -> Optional[float]:
+    """Device time of one call of ``fn`` that launches several kernels
+    (a library call): the sum over its kernels, by name, of the median
+    record of each, from the CUDA profiler.  None (not measured) when no
+    pass kept at least half of every kernel's records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name and all(2 * len(v) >= runs for v in by_name.values()):
+            return sum(statistics.median(v) for v in by_name.values())
+        log(f"profiler: kept {({n: len(v) for n, v in by_name.items()})} "
+            f"of {runs} calls' kernel records")
+    return None
+
+
+def time_usage(used, packed, req_f, n_batch: int, off: int, label: str,
+               card: str) -> dict:
+    """``sharded_usage`` on one shard: equal to its plain version bit for
+    bit (else fails), then its CUDA-event ms, profiler device us and host
+    us a call, the plain version's ms (on the host's copies), the bound,
+    and the library's scatter-add of the same asks into the same rows
+    (``index_add`` of the picks inside the window, chosen before the
+    timing) by CUDA events and on the device."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    args = (used, packed, req_f, n_batch, off)
+    got = k.sharded_usage(*args)
+    host = [x.cpu() for x in (used, packed, req_f)]
+    want = k.sharded_usage_plain(*host, n_batch, off)
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"sharded_usage [{label}] disagrees with its "
+                             f"plain version: max |err| "
+                             f"{float((got.cpu() - want).abs().max())}")
+    n = int(used.shape[0])
+    rows = host[1][:, 0, k.PACKED_ROW].numpy().astype(np.int64)
+    mine = np.flatnonzero((rows >= off) & (rows < off + n))
+    ask = k.REQ_FLOAT_OFF["ask"][0]
+    idx = torch.from_numpy(rows[mine] - off).to(used.device)
+    src = req_f[torch.from_numpy(mine).to(used.device), ask:ask + 3]
+    src = src.contiguous()
+
+    def library():
+        return used.index_add(0, idx, src)
+
+    out = {
+        "lanes": int(packed.shape[0]), "rows": n, "picks_inside": len(mine),
+        "ms": time_cuda(lambda: k.sharded_usage(*args), 20),
+        "device_us": device_us_per_launch(lambda: k.sharded_usage(*args),
+                                          "sharded_usage_kernel"),
+        "host_us": host_us_per_call(lambda: k.sharded_usage(*args), 500),
+        "plain_ms": time_cuda(
+            lambda: k.sharded_usage_plain(*host, n_batch, off), 3, warmup=1),
+        "library_ms": time_cuda(library, 20),
+        "library_device_us": device_us_per_call(library),
+    }
+    out["bound_ms"], out["bound_by"] = bound(
+        *sharded_usage_work(rows, n, off))
+    log(f"sharded: sharded_usage [{label}]: equal to its plain version bit "
+        f"for bit; {out['ms']:.4f} ms by CUDA events (device "
+        f"{fmt_us(out['device_us'])}, host {out['host_us']:.3f} us a call); "
+        f"index_add {out['library_ms']:.4f} ms (device "
+        f"{fmt_us(out['library_device_us'])}); plain {out['plain_ms']:.3f} "
+        f"ms; bound {out['bound_ms']:.7f} ms by {out['bound_by']}; "
+        f"{len(mine)} of {len(rows)} picks in {n} rows from {off} "
+        f"(card: {card})")
+    return out
+
+
+def bench_batch_picks():
+    """Phase 7's picks: ``score_batch`` at B=4096 on a fresh bench-shaped
+    cluster, packed as the sharded step packs them ((B, 1, 7), step 0's
+    row), with the asks' ``req_f``; and the cluster's columns."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.parallel import build_batch_inputs
+
+    m = build_cluster(N_NODES, CAPACITY, "cuda")
+    arrays = m.sync("cuda")
+    reqs, feats = bench_requests(m, SCORE_BATCH)
+    inp = build_batch_inputs(m, reqs, "cuda")
+    res = k.score_batch(*score_args(arrays, inp), feats)
+    return arrays, k.pack_batch_result(res)[:, None].contiguous(), \
+        inp["req_f"]
+
+
+def usage_at_bench_batch(card: str) -> dict:
+    """``sharded_usage`` at B=4096 (``bench_batch_picks``), n_batch 2, on
+    node shard 1 of the x4 mesh (5,120 rows) and of the x8 mesh (2,560
+    rows): ``time_usage`` of each."""
+    from nomad_tpu_torch.parallel import sharding
+
+    arrays, packed, req_f = bench_batch_picks()
+    out = {}
+    for devs in (["cuda:0"] * 4, ["cuda:0"] * 8):
+        mesh = sharding.make_mesh(devices=devs)
+        sharded = sharding.shard_matrix_arrays(mesh, arrays)
+        shard = sharded.shards[0][1]
+        out[f"x{len(devs)}"] = time_usage(
+            shard.used, packed, req_f, mesh.shape[0], sharded.row_offset(1),
+            f"x{len(devs)} shard 1, B={packed.shape[0]}", card)
+    return out
+
+
+# usage_case names of tests/torch_edge_cases.py timed beside the bench's
+# picks: picks spread over the whole matrix (b4096), half of them on four
+# hot rows (grouping), runs on one row between picks on others (runs);
+# each on node shard 1 of x4 (5,120 rows from 5,120), n_batch 2.
+SPREAD_USAGE_CASES = ("b4096", "grouping", "runs")
+
+
+def usage_on_spread_picks(card: str) -> dict:
+    """``time_usage`` of each of SPREAD_USAGE_CASES: the list walk over
+    picks on several rows of a CTA, which the bench's picks (all on one
+    row, or none in the shard) never reach."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    cases = edge_cases_module()
+    out = {}
+    for case in SPREAD_USAGE_CASES:
+        w = cases.usage_case(case)
+        used, packed, req_f = (torch.from_numpy(x).to("cuda") for x in
+                               cases.usage_operands(
+                                   w, k.PACKED_WIDTH, k.REQ_FLOAT_WIDTH,
+                                   k.REQ_FLOAT_OFF["ask"][0]))
+        out[case] = time_usage(used, packed, req_f, w["n_batch"],
+                               w["row_offset"],
+                               f"{case}, x4 shard 1, B={packed.shape[0]}",
+                               card)
+    return out
+
+
+def kernel_ab() -> None:
+    """The two kernels' times in whichever ``nomad_tpu_torch`` this process
+    imports, at the smoke's shapes, as one JSON line: ``verify_plan_fit``
+    on the seeded plan (K=10,000 on a fresh 10,000-node cluster), and
+    ``sharded_usage`` on node shard 1 at B=64 (x4, the feature batch's
+    step, as 14b) and at B=4096 (x4 and x8 on phase 7's picks, and the
+    spread picks of SPREAD_USAGE_CASES, as 14b').  Only calls that an
+    earlier tree's wrappers share, so an earlier tree is timed with the
+    same inputs in the same call: from that tree's root, load this file
+    by path (importlib) and call ``kernel_ab()``."""
+    import types
+
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.parallel import sharding
+
+    card = card_line()
+    tree = str(Path(k.__file__).resolve().parents[2])
+    m = build_cluster(N_NODES, CAPACITY, "cuda")
+    cols, rows, deltas, er = seeded_plan(m)
+    arrays = types.SimpleNamespace(**{
+        f: torch.from_numpy(v).to("cuda") for f, v in cols.items()})
+    args = (arrays, *(torch.from_numpy(x).to("cuda")
+                      for x in (rows, deltas, er)))
+    got = k.verify_plan_fit(*args)
+    if not torch.equal(got.cpu(), k.verify_plan_fit_plain(*args).cpu()):
+        raise AssertionError("verify_plan_fit disagrees with its plain "
+                             "version")
+    out = {"tree": tree, "card": card, "verify_plan_fit": {
+        "ms": time_cuda(lambda: k.verify_plan_fit(*args), 20),
+        "device_us": device_us_per_launch(lambda: k.verify_plan_fit(*args),
+                                          "verify_plan_fit_kernel"),
+        "host_us": host_us_per_call(lambda: k.verify_plan_fit(*args), 500),
+    }}
+    feat = make_batches(m, "cuda")[1]
+    ops = sharded_operands(feat)
+    mesh = sharding.make_mesh(devices=["cuda:0"] * 4)
+    sharded = sharding.shard_matrix_arrays(mesh, feat.arrays)
+    res, _ = sharding.sharded_schedule_step(mesh)(sharded, *ops[2:-1])
+    packed = k.pack_batch_result(res)[:, None].contiguous()
+    out["sharded_usage_b64"] = time_usage(
+        sharded.shards[0][1].used, packed, torch.from_numpy(ops[6]).cuda(),
+        mesh.shape[0], sharded.row_offset(1), "x4 shard 1, B=64", card)
+    out["sharded_usage_b4096"] = usage_at_bench_batch(card)
+    out["sharded_usage_spread"] = usage_on_spread_picks(card)
+    print("ab: " + json.dumps(out), flush=True)
+
+
 def phase_sharded(card: str, results: dict) -> None:
     import torch
 
@@ -5718,33 +6007,19 @@ def phase_sharded(card: str, results: dict) -> None:
         res, _ = sharding.sharded_schedule_step(mesh)(sharded, *ops[2:-1])
         step_packed = k.pack_batch_result(res)[:, None].contiguous().to(d)
         rf = torch.from_numpy(ops[6]).to(d)
-        uargs = (shard.used, step_packed, rf, mesh.shape[0], off)
-        ru["ms"] = time_cuda(lambda: k.sharded_usage(*uargs), 20)
-        ru["plain_ms"] = time_cuda(
-            lambda: k.sharded_usage_plain(
-                shard.used.cpu(), step_packed.cpu(), rf.cpu(),
-                mesh.shape[0], off), 3, warmup=1)
-        ru["device_us"] = device_us_per_launch(
-            lambda: k.sharded_usage(*uargs), "sharded_usage_kernel")
-        rows = res.rows.cpu().numpy()
-        ru["bound_ms"], ru["bound_by"] = bound(
-            *sharded_usage_work(rows, sharded.n_local, off))
-        # The library's scatter-add of the same asks into the same rows
-        # (the picks inside the window, chosen before the timing).
-        mine = np.flatnonzero((rows >= off) & (rows < off + sharded.n_local))
-        idx = torch.from_numpy((rows[mine] - off).astype(np.int64)).to(d)
-        src = rf[torch.from_numpy(mine).to(d), ask:ask + 3].contiguous()
-        ru["library_ms"] = time_cuda(
-            lambda: shard.used.index_add(0, idx, src), 20)
-        log(f"sharded: sharded_usage {ru['ms']:.4f} ms (device "
-            f"{fmt_us(ru['device_us'])}), plain {ru['plain_ms']:.1f} ms, "
-            f"index_add {ru['library_ms']:.4f} ms, bound "
-            f"{ru['bound_ms']:.6f} ms by {ru['bound_by']} (card: {card})")
+        ru.update(time_usage(shard.used, step_packed, rf, mesh.shape[0], off,
+                             f"x4 shard 1, B={step_packed.shape[0]}", card))
+        ru["host_split_us"] = usage_wrapper_split(
+            shard.used, step_packed, rf, mesh.shape[0], off, card)
         log(f"sharded: sharded_place device {fmt_us(rp['device_us'])} a "
             f"launch, plain version {rp['plain_ms']:.1f} ms; windowed "
             f"allocs_fit_verify {rv['ms']:.4f} ms (device "
             f"{fmt_us(rv['device_us'])}), plain {rv['plain_ms']:.1f} ms, "
             f"bound {rv['bound_ms']:.6f} ms (card: {card})")
+
+    # -- 14b': sharded_usage at the bench's batch, phase 7's picks.
+    ru["b4096"] = usage_at_bench_batch(card)
+    ru["spread"] = usage_on_spread_picks(card)
 
     # -- 14c: live servers, sharded over four virtual shards and alone.
     def run(label, device, shards=None):
@@ -6000,6 +6275,9 @@ def run_phases() -> int:
             "solo_run": r.get("solo_run"), "device_us": r.get("device_us"),
             "launch": r.get("launch"), "host_us": r.get("host_us"),
             "host_split_us": r.get("host_split_us"),
+            "library_device_us": r.get("library_device_us"),
+            "b4096": r.get("b4096"),
+            "spread": r.get("spread"),
             "cases": r.get("cases"),
             "matches_plain": r.get("matches_plain", False),
         })

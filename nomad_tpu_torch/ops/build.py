@@ -111,7 +111,7 @@ _ARGTYPES = {
     "nomad_allocs_fit_verify": [_PTR] * 10 + [_INT] * 6 + [_PTR],
     "nomad_system_feasible": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nomad_score_batch": [_PTR] * 21 + [_INT] * 10 + [_PTR],
-    "nomad_verify_plan_fit": [_PTR] * 7 + [_INT] * 2 + [_PTR],
+    "nomad_verify_plan_fit": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     "nomad_sharded_place": [_PTR, _INT, _PTR] + [_INT] * 10 + [_PTR],
     "nomad_sharded_usage": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # Launch-shape queries of the kernels that pick their own shape.

@@ -64,9 +64,15 @@
 // Numerics: built without --use_fast_math and with -fmad=false, as the
 // other kernels: every score rounds as in fused_place.cu and the plain
 // PyTorch version.
+//
+// The file's second entry, sharded_usage (below), is the sharded step's
+// usage update (sharding.py:284-294): an ordered list of each CTA's picks
+// built with warp ballots, each batch row's segment walked in staged
+// windows, no atomics; its notes stand beside it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -491,31 +497,383 @@ sharded_place_kernel(const __grid_constant__ SPParams P) {
 // _step_local (nomad_tpu/parallel/sharding.py:284-294).  used_after[r] =
 // used[r] + delta[r]; delta sums, batch row by batch row in mesh order,
 // each row's part, and a part sums the asks of that row's lanes (in lane
-// order) whose pick is global row off + r.  One thread a local row; every
-// thread reads the B picks (step 0's row of the gathered (B, P, 7) result)
-// and their asks, a few KB that L1 serves.
+// order) whose pick is global row off + r.
+//
+// What bounds it on an H100: the bytes are the copy of `used` into `out`
+// (123 KB at 5,120 rows) and a few KB of picks and asks, well under a
+// microsecond at 3.35 TB/s.  The time goes to launch latency, the
+// dependent round trips to L2, and, where many lanes pick one node (a
+// batch of identical requests all picks the same best node), the chain
+// of float32 adds that the fixed summation order makes sequential.  The
+// first design gave each thread one row and made it read all B picks
+// (n x B reads: 21 M at B = 4,096 on 5,120 rows).
+//
+// Design (no atomics: the sums keep one order, the plain version's):
+// * The grid covers the card: each CTA owns a span of at most SU_THREADS
+//   rows (a multiple of 4), about n / SMs of them, and loads its rows of
+//   `used` first, for the last phase.
+// * Every CTA reads the B picks once, SU_GROUP chunks of SU_THREADS lanes
+//   at a time (all loads of a group in flight together).  A warp ballot
+//   per chunk and one prefix sum a group over the (chunk, warp) counts
+//   append the lanes whose pick falls in the CTA's span to a list in
+//   shared memory, in lane order: 16-bit lane, 8-bit row.  The list holds
+//   B entries, so B is at most SU_MAX_LANES (the wrapper refuses more).
+//   A CTA whose list is empty writes out = used + 0.0 at once.
+// * Batch rows are contiguous lanes, so each batch row is a segment of
+//   the list.  With n_batch <= SU_MAX_G and room for it, a warp-aligned
+//   group of threads walks each batch row's segment (one thread a row),
+//   so a hot row's parts add up in parallel; else one thread a row walks
+//   the whole list, closing a part when the batch row changes.
+// * Windows of SU_WIN entries (each group's next ones) are staged: the
+//   ask and batch row as a float4 and the row byte, the next window's
+//   loads in flight while the current one is walked.  Each 16-entry
+//   block whose entries all lie on one row is marked with it, and that
+//   row's thread adds a run of such blocks from registers, the next 16
+//   loaded ahead (the chain of dependent adds is the floor there); any
+//   other block is walked entry by entry.
+// * Each row's parts are then added in batch-row order, and the CTA's
+//   rows written out = used + delta with 16-byte accesses (a row without
+//   a pick adds 0.0, as the plain version does).
 #define SU_THREADS 256
+#define SU_WARPS (SU_THREADS / 32)
+#define SU_GROUP 8  // chunks of SU_THREADS picks read before their ballots
+#define SU_STAGE 4  // asks a thread stages per window
+#define SU_WIN (SU_THREADS * SU_STAGE)
+#define SU_WIN_LOG 10  // log2(SU_WIN)
+#define SU_MAX_G 8  // batch rows walked in parallel
+#define SU_MAX_LANES 65536  // the list's 16-bit lanes
+
+// Dynamic shared memory: the list's lanes, then its rows.
+__host__ __device__ static inline size_t su_rows_at(int b) {
+  return ((size_t)2 * b + 15) / 16 * 16;
+}
+__host__ __device__ static inline size_t su_smem_bytes(int b) {
+  return su_rows_at(b) + (size_t)b;
+}
+
+// Window k's entries that this thread stages: each group's entries
+// segs[g] + k * sub + [0, sub), as {ask, batch row} and the row byte.
+__device__ __forceinline__ void su_fetch(float4* pre, uint8_t* prow,
+                                         const uint16_t* lanes,
+                                         const uint8_t* rows,
+                                         const float* __restrict__ req_f,
+                                         const int* segs, const int* s_grp,
+                                         const int* s_ent, int k, int sub,
+                                         int groups, int per) {
+#pragma unroll
+  for (int s = 0; s < SU_STAGE; ++s) {
+    if (s_grp[s] >= groups) continue;
+    const int j = segs[s_grp[s]] + k * sub + s_ent[s];
+    if (j >= segs[s_grp[s] + 1]) continue;
+    const int lane = lanes[j];
+    const float* q = req_f + (size_t)lane * REQ_FLOAT_WIDTH + RF_ASK;
+    // A group of its own is one batch row.
+    const int br = groups > 1 ? s_grp[s] : lane / per;
+    pre[s] = make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2),
+                         __int_as_float(br));
+    prow[s] = rows[j];
+  }
+}
+
+// Adds one staged entry's ask, closing the part when the batch row
+// changes.
+__device__ __forceinline__ void su_add1(const float4 v, int& cur, float& d0,
+                                        float& d1, float& d2, float& p0,
+                                        float& p1, float& p2) {
+  const int br = __float_as_int(v.w);
+  if (br != cur) {
+    d0 = d0 + p0;
+    d1 = d1 + p1;
+    d2 = d2 + p2;
+    p0 = p1 = p2 = 0.0f;
+    cur = br;
+  }
+  p0 = p0 + v.x;
+  p1 = p1 + v.y;
+  p2 = p2 + v.z;
+}
+
+// Adds 16 staged entries of one row in order, closing the part when the
+// batch row changes (batch rows only grow along the list, so a block
+// whose last entry is of the current batch row is all of it).
+__device__ __forceinline__ void su_add16(const float4 (&v)[16], int& cur,
+                                         float& d0, float& d1, float& d2,
+                                         float& p0, float& p1, float& p2) {
+  if (__float_as_int(v[15].w) == cur) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      p0 = p0 + v[e].x;
+      p1 = p1 + v[e].y;
+      p2 = p2 + v[e].z;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) su_add1(v[e], cur, d0, d1, d2, p0, p1, p2);
+}
+
+__device__ __forceinline__ void su_load16(float4 (&v)[16], const float4* st) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) v[e] = st[e];
+}
+
+// Adds a run of len staged entries (a multiple of 16) that all lie on this
+// walker's row, 32 at a time: all 32 loads issued before the adds.
+__device__ __forceinline__ void su_run(const float4* st, int len, int& cur,
+                                       float& d0, float& d1, float& d2,
+                                       float& p0, float& p1, float& p2) {
+  int e = 0;
+  for (; e + 32 <= len; e += 32) {
+    float4 a[16], b[16];
+    su_load16(a, st + e);
+    su_load16(b, st + e + 16);
+    su_add16(a, cur, d0, d1, d2, p0, p1, p2);
+    su_add16(b, cur, d0, d1, d2, p0, p1, p2);
+  }
+  if (e < len) {
+    float4 a[16];
+    su_load16(a, st + e);
+    su_add16(a, cur, d0, d1, d2, p0, p1, p2);
+  }
+}
 
 __global__ void __launch_bounds__(SU_THREADS)
-sharded_usage_kernel(const float* used, const float* packed,
-                     const float* req_f, float* out, int n, int off, int b,
-                     int p, int n_batch) {
-  const int r = blockIdx.x * SU_THREADS + threadIdx.x;
-  if (r >= n) return;
-  const int per = b / n_batch;
-  const int want = off + r;
-  float dl[3] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < n_batch; ++i) {
-    float part[3] = {0.0f, 0.0f, 0.0f};
-    for (int lane = i * per; lane < (i + 1) * per; ++lane) {
-      if ((int)packed[(size_t)lane * p * PACKED_WIDTH] != want) continue;
-      const float* ask = req_f + (size_t)lane * REQ_FLOAT_WIDTH + RF_ASK;
-      for (int c = 0; c < 3; ++c) part[c] += ask[c];
+sharded_usage_kernel(const float* __restrict__ used,
+                     const float* __restrict__ packed,
+                     const float* __restrict__ req_f,
+                     float* __restrict__ out, int n, int off, int b, int p,
+                     int per, int span, int span_w, int groups, int vec) {
+  extern __shared__ __align__(16) unsigned char su_smem[];
+  uint16_t* list_lane = reinterpret_cast<uint16_t*>(su_smem);
+  uint8_t* list_row = su_smem + su_rows_at(b);
+  __shared__ int counts[SU_GROUP * SU_WARPS];
+  __shared__ int starts[SU_GROUP * SU_WARPS];
+  __shared__ int total;
+  __shared__ int segs[SU_MAX_G + 1];
+  __shared__ int run_row[SU_WIN / 16];
+  __shared__ int uniform[SU_MAX_G];
+  __shared__ float4 stage[SU_WIN];
+  __shared__ __align__(16) uint8_t stage_row[SU_WIN];
+  __shared__ __align__(16) float delta[SU_THREADS * 3];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lid = tid & 31;
+  const int lo = blockIdx.x * span;
+  const int rows = min(span, n - lo);
+  const int first = off + lo;  // the global row of the CTA's first row
+  const size_t stride = (size_t)p * PACKED_WIDTH;
+  // The CTA's rows of `used`, one float4 a thread, loaded now for the
+  // last phase.
+  const size_t at = (size_t)lo * 3;
+  const int words = rows * 3;
+  float4 u4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (vec && tid < words / 4)
+    u4 = __ldg(reinterpret_cast<const float4*>(used + at) + tid);
+  if (tid == 0) total = 0;
+
+  // The ordered list of the lanes whose pick falls in [first, first+rows).
+  for (int base = 0; base < b; base += SU_THREADS * SU_GROUP) {
+    int r[SU_GROUP];
+#pragma unroll
+    for (int u = 0; u < SU_GROUP; ++u) {
+      const int lane = base + u * SU_THREADS + tid;
+      r[u] = -1;
+      if (lane < b) {
+        const int g = (int)__ldg(packed + (size_t)lane * stride);
+        if (g >= first && g < first + rows) r[u] = g - first;
+      }
     }
-    for (int c = 0; c < 3; ++c) dl[c] = dl[c] + part[c];
+    unsigned m[SU_GROUP];
+#pragma unroll
+    for (int u = 0; u < SU_GROUP; ++u)
+      m[u] = __ballot_sync(0xffffffffu, r[u] >= 0);
+    if (lid == 0) {
+#pragma unroll
+      for (int u = 0; u < SU_GROUP; ++u)
+        counts[u * SU_WARPS + warp] = __popc(m[u]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // Exclusive prefix of the counts in (chunk, warp) order, which is
+      // lane order; two counts a lane.
+      const int c0 = counts[2 * lid], c1 = counts[2 * lid + 1];
+      const int t0 = total;
+      int s = c0 + c1;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, s, d);
+        if (lid >= d) s += x;
+      }
+      const int before = t0 + s - c0 - c1;
+      starts[2 * lid] = before;
+      starts[2 * lid + 1] = before + c0;
+      __syncwarp();
+      if (lid == 31) total = t0 + s;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lid) - 1u;
+#pragma unroll
+    for (int u = 0; u < SU_GROUP; ++u) {
+      if (r[u] >= 0) {
+        const int at = starts[u * SU_WARPS + warp] + __popc(m[u] & below);
+        list_lane[at] = (uint16_t)(base + u * SU_THREADS + tid);
+        list_row[at] = (uint8_t)r[u];
+      }
+    }
   }
-  for (int c = 0; c < 3; ++c)
-    out[(size_t)r * 3 + c] = used[(size_t)r * 3 + c] + dl[c];
+  __syncthreads();
+  const int count = total;
+  if (count > 0) {
+    // Each group's segment: the entries of lanes [g, g + 1) * (b / groups).
+    if (tid <= groups) {
+      const int want = tid * (b / groups);
+      int a = 0, z = count;
+      while (a < z) {
+        const int mid = (a + z) >> 1;
+        if ((int)list_lane[mid] < want) a = mid + 1;
+        else z = mid;
+      }
+      segs[tid] = a;
+    }
+    __syncthreads();
+    // A window stages each group's next `sub` entries at stage[g * sub]
+    // (sub a power of two, at least 128).
+    const int sub_log = SU_WIN_LOG - (32 - __clz(groups - 1));
+    const int sub = 1 << sub_log;
+    int windows = 0;
+    for (int g = 0; g < groups; ++g)
+      windows = max(windows, (segs[g + 1] - segs[g] + sub - 1) >> sub_log);
+    // What this thread stages: stage index s * SU_THREADS + tid.
+    int s_grp[SU_STAGE], s_ent[SU_STAGE];
+#pragma unroll
+    for (int s = 0; s < SU_STAGE; ++s) {
+      const int idx = s * SU_THREADS + tid;
+      s_grp[s] = idx >> sub_log;
+      s_ent[s] = idx & (sub - 1);
+    }
+    const int grp = tid / span_w, row = tid - grp * span_w;
+    const bool walker = grp < groups && row < rows;
+    const int seg_len = walker ? segs[grp + 1] - segs[grp] : 0;
+
+    float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+    int cur = -1;
+    float4 pre[SU_STAGE];
+    uint8_t prow[SU_STAGE];
+#pragma unroll
+    for (int s = 0; s < SU_STAGE; ++s) {
+      pre[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      prow[s] = 0;
+    }
+    su_fetch(pre, prow, list_lane, list_row, req_f, segs, s_grp, s_ent, 0, sub,
+             groups, per);
+    for (int k = 0; k < windows; ++k) {
+      if (tid < groups) uniform[tid] = 1;
+#pragma unroll
+      for (int s = 0; s < SU_STAGE; ++s) {
+        stage[s * SU_THREADS + tid] = pre[s];
+        stage_row[s * SU_THREADS + tid] = prow[s];
+      }
+      __syncthreads();
+      if (k + 1 < windows)
+        su_fetch(pre, prow, list_lane, list_row, req_f, segs, s_grp, s_ent,
+                 k + 1, sub, groups, per);
+      // Each 16-entry block of a group's window whose entries all lie on
+      // one row: that row, else -1; and whether the whole window lies on
+      // the row of its first entry (every lane of a batch of identical
+      // requests picks the same node).
+      if (tid < groups * (sub >> 4)) {
+        const int g = tid >> (sub_log - 4), blk = tid & ((sub >> 4) - 1);
+        const int n =
+            min(16, min(sub, segs[g + 1] - segs[g] - k * sub) - 16 * blk);
+        const uint8_t* b8 = stage_row + g * sub + 16 * blk;
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(b8);
+        const uint32_t w0 = w[0], r0 = w0 & 0xffu;
+        const bool one = n == 16 && w0 == r0 * 0x01010101u && w[1] == w0 &&
+                         w[2] == w0 && w[3] == w0;
+        run_row[tid] = one ? (int)r0 : -1;
+        const uint8_t first = stage_row[g * sub];
+        bool same = one && r0 == first;
+        if (n > 0 && n < 16) {
+          same = true;
+          for (int e = 0; e < n; ++e) same = same && b8[e] == first;
+        }
+        if (n > 0 && !same) uniform[g] = 0;
+      }
+      __syncthreads();
+      // This walker's entries of the window: stage[grp * sub + [0, len)).
+      const int len = max(0, min(sub, seg_len - k * sub));
+      const float4* st = stage + grp * sub;
+      const uint8_t* sr = stage_row + grp * sub;
+      const int* runs = run_row + grp * (sub >> 4);
+      if (len > 0 && uniform[grp]) {
+        // One row: its walker adds them all, the others have none.
+        if (row == sr[0]) {
+          su_run(st, len & ~15, cur, d0, d1, d2, p0, p1, p2);
+          for (int i = len & ~15; i < len; ++i)
+            su_add1(st[i], cur, d0, d1, d2, p0, p1, p2);
+        }
+      } else {
+        // Block by block: a run of blocks on this walker's row through
+        // su_run, any other block entry by entry.
+        for (int blk = 0; blk * 16 < len;) {
+          if (runs[blk] == row) {
+            int end = blk + 1;
+            while (end * 16 < len && runs[end] == row) ++end;
+            su_run(st + 16 * blk, 16 * (end - blk), cur, d0, d1, d2, p0, p1,
+                   p2);
+            blk = end;
+            continue;
+          }
+          if (runs[blk] < 0) {
+            const int stop = min(len, 16 * blk + 16);
+            for (int i = 16 * blk; i < stop; ++i)
+              if (sr[i] == row) su_add1(st[i], cur, d0, d1, d2, p0, p1, p2);
+          }
+          ++blk;
+        }
+      }
+      __syncthreads();
+    }
+
+    // Each row's parts in batch-row order.
+    delta[tid * 3] = d0 + p0;
+    delta[tid * 3 + 1] = d1 + p1;
+    delta[tid * 3 + 2] = d2 + p2;
+    __syncthreads();
+    float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
+    if (tid < rows) {
+      for (int g = 0; g < groups; ++g) {
+        const int q = (g * span_w + tid) * 3;
+        f0 = f0 + delta[q];
+        f1 = f1 + delta[q + 1];
+        f2 = f2 + delta[q + 2];
+      }
+    }
+    __syncthreads();
+    if (tid < rows) {
+      delta[tid * 3] = f0;
+      delta[tid * 3 + 1] = f1;
+      delta[tid * 3 + 2] = f2;
+    }
+    __syncthreads();
+  }
+
+  // out = used + delta (+0.0 where no pick landed, as the plain version
+  // adds it).
+  if (vec) {
+    if (tid < words / 4) {
+      const float4 y = count > 0 ? reinterpret_cast<const float4*>(delta)[tid]
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      reinterpret_cast<float4*>(out + at)[tid] =
+          make_float4(u4.x + y.x, u4.y + y.y, u4.z + y.z, u4.w + y.w);
+    }
+    const int i = words / 4 * 4 + tid;
+    if (i < words)
+      out[at + i] = __ldg(used + at + i) + (count > 0 ? delta[i] : 0.0f);
+  } else {
+    for (int i = tid; i < words; i += SU_THREADS)
+      out[at + i] = __ldg(used + at + i) + (count > 0 ? delta[i] : 0.0f);
+  }
 }
 
 // Launch shape: cluster size, each CTA's row span, scratch bytes per CTA,
@@ -637,15 +995,38 @@ extern "C" int nomad_sharded_place(const SPPair* pairs, int q, int32_t* table,
   return sp_launch<WidthsFull>(P, sh, sh.c, stream);
 }
 
+// Rows a CTA of sharded_usage owns: about n / SMs, a multiple of 4 (so
+// that every CTA's rows start on 16 bytes), at most SU_THREADS.
+static int su_span(int n) {
+  const int sms = nomad_sm_count();
+  int span = ((n + sms - 1) / sms + 3) / 4 * 4;
+  if (span > SU_THREADS) span = SU_THREADS;
+  return span;
+}
+
 extern "C" int nomad_sharded_usage(const float* used, const float* packed,
                                    const float* req_f, float* out, int n,
                                    int row_offset, int b, int p, int n_batch,
                                    cudaStream_t stream) {
-  if (n <= 0 || b <= 0 || p < 1 || row_offset < 0 || n_batch < 1 ||
-      b % n_batch)
+  if (n <= 0 || b <= 0 || b > SU_MAX_LANES || p < 1 || row_offset < 0 ||
+      row_offset > INT_MAX - n || n_batch < 1 || b % n_batch)
     return (int)cudaErrorInvalidValue;
-  sharded_usage_kernel<<<(n + SU_THREADS - 1) / SU_THREADS, SU_THREADS, 0,
-                         stream>>>(used, packed, req_f, out, n, row_offset,
-                                   b, p, n_batch);
+  const size_t smem = su_smem_bytes(b);
+  if (smem > 48 * 1024) {
+    static bool attr_set[NOMAD_MAX_DEVICES];
+    const cudaError_t e = nomad_smem_once(attr_set, sharded_usage_kernel,
+                                          (int)su_smem_bytes(SU_MAX_LANES));
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int span = su_span(n);
+  // Warp-aligned groups of row threads, one a batch row, where they fit.
+  const int span_w = (span + 31) / 32 * 32;
+  const int groups =
+      n_batch <= SU_MAX_G && n_batch * span_w <= SU_THREADS ? n_batch : 1;
+  const int vec = ((reinterpret_cast<uintptr_t>(used) |
+                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  sharded_usage_kernel<<<(n + span - 1) / span, SU_THREADS, smem, stream>>>(
+      used, packed, req_f, out, n, row_offset, b, p, b / n_batch, span,
+      span_w, groups, vec);
   return (int)cudaGetLastError();
 }

@@ -828,15 +828,52 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-# Entries (weak references to the columns, device, rows, the columns'
-# pointers as a ctypes array) of the matrices _check_matrix passed, the
-# newest first: a DeviceArrays is immutable and the dispatch loops pass
-# the same ones again and again (one per node shard on the sharded path),
-# so their twelve column checks run once per set of columns.  Weak
-# references let a replaced matrix be freed (a dead one matches no
-# tensor); the tuple is replaced whole, so threads see whole entries.
-_checked_matrices: tuple = ()
+# Library entry points by name, resolved once: ``load_library`` builds
+# and loads every kernel on its first call.
+_entries: dict = {}
+
+
+def _entry(lib: str, name: str):
+    """The ``ctypes`` function ``name`` of kernel library ``lib``."""
+    fn = _entries.get(name)
+    if fn is None:
+        from .build import load_library
+
+        fn = _entries[name] = getattr(load_library(lib), name)
+    return fn
+
+
+class _ColumnMemo:
+    """Sets of columns that passed a wrapper's checks, each with its
+    device, rows and the columns' pointers as a ctypes array, the newest
+    first (at most ``_MEMO_ENTRIES``): the dispatch loops pass the same
+    immutable columns again and again (one set per node shard on the
+    sharded path), so their checks run once per set.  Weak references let
+    replaced columns be freed (a dead one matches no tensor); the tuple is
+    replaced whole, so threads see whole entries."""
+
+    def __init__(self):
+        self.entries: tuple = ()
+
+    def get(self, cols, device):
+        """(rows, pointers) of ``cols`` on ``device`` if checked, else None."""
+        for memo in self.entries:
+            if (memo[1] == device and len(memo[0]) == len(cols)
+                    and all(r() is t for r, t in zip(memo[0], cols))):
+                return memo[2], memo[3]
+        return None
+
+    def put(self, cols, device, n: int):
+        """Remember ``cols`` as checked; returns (rows, pointers)."""
+        ptrs = (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols])
+        entry = (tuple(weakref.ref(t) for t in cols), device, n, ptrs)
+        live = tuple(m for m in self.entries if m[0] and m[0][0]() is not None)
+        self.entries = (entry,) + live[:_MEMO_ENTRIES - 1]
+        return n, ptrs
+
+
 _MEMO_ENTRIES = 32
+_checked_matrices = _ColumnMemo()
 
 
 def _check_matrix(arrays: DeviceArrays, used, device) -> int:
@@ -847,14 +884,11 @@ def _checked_cols(arrays: DeviceArrays, used, device):
     """(rows, the columns' device pointers as a ctypes array in
     DeviceArrays order) of a matrix whose columns and ``used`` pass the
     checks; raises otherwise."""
-    global _checked_matrices
     n = arrays.totals.shape[0]
     _check("used", used, torch.float32, (n, 3), device)
-    memos = _checked_matrices
-    for memo in memos:
-        if (memo[1] == device and len(memo[0]) == len(arrays)
-                and all(r() is t for r, t in zip(memo[0], arrays))):
-            return memo[2], memo[3]
+    got = _checked_matrices.get(arrays, device)
+    if got is not None:
+        return got
     a = arrays.attr_hash.shape[1]
     f32, i32 = torch.float32, torch.int32
     _check("totals", arrays.totals, f32, (n, 3), device)
@@ -869,11 +903,7 @@ def _checked_cols(arrays: DeviceArrays, used, device):
     _check("port_words", arrays.port_words, i32,
            (n, arrays.port_words.shape[1]), device)
     _check("dyn_used", arrays.dyn_used, i32, (n,), device)
-    cols = (ctypes.c_void_p * len(arrays))(*[t.data_ptr() for t in arrays])
-    entry = (tuple(weakref.ref(t) for t in arrays), device, n, cols)
-    live = tuple(m for m in memos if m[0] and m[0][0]() is not None)
-    _checked_matrices = (entry,) + live[:_MEMO_ENTRIES - 1]
-    return n, cols
+    return _checked_matrices.put(arrays, device, n)
 
 
 def _matrix_ptrs(arrays: DeviceArrays, used):
@@ -884,10 +914,6 @@ def _matrix_ptrs(arrays: DeviceArrays, used):
             arrays.class_id.data_ptr(), arrays.dev_total.data_ptr(),
             arrays.dev_used.data_ptr(), arrays.prio_used.data_ptr(),
             arrays.port_words.data_ptr(), arrays.dyn_used.data_ptr())
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
 
 
 # The current stream's raw handle without building a Stream object (the
@@ -932,10 +958,8 @@ def fused_place_shape(n: int, b: int, d: int, n_placements: int,
     key = ("fused_place", n, b, d, n_placements, features)
     got = _shapes.get(key)
     if got is None:
-        from .build import load_library
-
         buf = (ctypes.c_longlong * 6)()
-        load_library("fused_place").nomad_fused_place_shape(
+        _entry("fused_place", "nomad_fused_place_shape")(
             n, b, d, n_placements, features.c_width, features.a_width,
             features.s_width, int(features.preempt), int(features.ports), buf)
         got = dict(cluster=buf[0], span=buf[1], smem=buf[2],
@@ -954,10 +978,8 @@ def score_batch_shape(n: int, b: int, features: Features) -> dict:
     key = ("score_batch", n, b, features)
     got = _shapes.get(key)
     if got is None:
-        from .build import load_library
-
         buf = (ctypes.c_int * 5)()
-        load_library("score_batch").nomad_score_batch_shape(
+        _entry("score_batch", "nomad_score_batch_shape")(
             n, b, features.c_width, features.a_width, features.s_width,
             int(features.preempt), int(features.ports), buf)
         got = dict(cluster=buf[0], lanes=buf[1], node_tile=buf[2],
@@ -991,9 +1013,7 @@ def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
     _check("lane_mask", lane_mask, torch.bool, (b,), dev)
     if n_placements < 1:
         raise ValueError("n_placements must be >= 1")
-    from .build import load_library
-
-    lib = load_library("fused_place")
+    launch = _entry("fused_place", "nomad_fused_place")
     out = torch.empty((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
     with _on(dev):
@@ -1006,7 +1026,7 @@ def _launch_fused_place(name: str, arrays: DeviceArrays, used, delta_rows,
             scratch = torch.empty(
                 (b * shape["cluster"] * shape["scratch_cta"],),
                 dtype=torch.uint8, device=dev)
-        rc = lib.nomad_fused_place(
+        rc = launch(
             *_matrix_ptrs(arrays, used),
             delta_rows.data_ptr(), delta_vals.data_ptr(),
             tg_counts.data_ptr(), spread_counts.data_ptr(),
@@ -1111,10 +1131,8 @@ def allocs_fit_verify_shape(n: int, b: int, p: int, d: int) -> dict:
     key = ("allocs_fit_verify", n, b, p, d)
     got = _shapes.get(key)
     if got is None:
-        from .build import load_library
-
         buf = (ctypes.c_longlong * 6)()
-        load_library("allocs_fit_verify").nomad_allocs_fit_verify_shape(
+        _entry("allocs_fit_verify", "nomad_allocs_fit_verify_shape")(
             n, b, p, d, buf)
         got = dict(tier=buf[0], passes=buf[1], digit_bits=buf[2],
                    events=buf[3], smem=buf[4], scratch=buf[5])
@@ -1160,9 +1178,7 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
         _check("and_with", and_with, torch.float32, (n_and, b, p), dev)
     if row_offset is not None and row_offset < 0:
         raise ValueError("row_offset must be >= 0")
-    from .build import load_library
-
-    lib = load_library("allocs_fit_verify")
+    launch = _entry("allocs_fit_verify", "nomad_allocs_fit_verify")
     out = torch.empty((b, p, FUSED_PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
     # Event arrays past the shared-memory tier live in a device scratch;
@@ -1173,7 +1189,7 @@ def allocs_fit_verify(totals, used, packed, req_f, delta_rows, delta_vals,
         if plan["tier"]:
             scratch = torch.empty((plan["scratch"] // 4,), dtype=torch.int32,
                                   device=dev)
-        rc = lib.nomad_allocs_fit_verify(
+        rc = launch(
             totals.data_ptr(), used.data_ptr(), packed.data_ptr(),
             req_f.data_ptr(), delta_rows.data_ptr(), delta_vals.data_ptr(),
             lane_mask.data_ptr(), out.data_ptr(),
@@ -1231,12 +1247,10 @@ def system_feasible(arrays: DeviceArrays, used0, req_i, req_f, class_elig,
     _check("host_mask", host_mask, torch.bool, (n,), dev)
     if k < 1:
         raise ValueError("class_elig must hold at least one class")
-    from .build import load_library
-
-    lib = load_library("system_feasible")
+    launch = _entry("system_feasible", "nomad_system_feasible")
     out = torch.empty((2, n), dtype=torch.bool, device=dev)
     with _on(dev):
-        rc = lib.nomad_system_feasible(
+        rc = launch(
             cols, used0.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
             class_elig.data_ptr(), host_mask.data_ptr(), out.data_ptr(), n,
             arrays.attr_hash.shape[1], arrays.port_words.shape[1], k,
@@ -1338,16 +1352,14 @@ def score_batch(arrays: DeviceArrays, used, tg_counts, spread_counts,
     _check("req_f", req_f, torch.float32, (b, REQ_FLOAT_WIDTH), dev)
     _check("class_eligs", class_eligs, torch.bool, (b, k), dev)
     _check("host_masks", host_masks, torch.bool, (b, n), dev)
-    from .build import load_library
-
-    lib = load_library("score_batch")
+    launch = _entry("score_batch", "nomad_score_batch")
     # The kernel writes each field in its own type: rows, score bits,
     # binpack bits and the three counters as (6, B) int32, the preemption
     # flags as (B,) bytes of 0 or 1.
     out = torch.empty((6, b), dtype=torch.int32, device=dev)
     pre = torch.empty((b,), dtype=torch.bool, device=dev)
     with _on(dev):
-        rc = lib.nomad_score_batch(
+        rc = launch(
             *_matrix_ptrs(arrays, used),
             tg_counts.data_ptr(), spread_counts.data_ptr(),
             penalties.data_ptr(), req_i.data_ptr(), req_f.data_ptr(),
@@ -1387,6 +1399,24 @@ def verify_plan_fit_plain(arrays, rows, deltas, eligible_required):
 verify_plan_fit_plain.calls = 0
 
 
+_checked_plan_cols = _ColumnMemo()
+
+
+def _plan_cols(arrays, device):
+    """(rows, the used, totals and eligible device pointers as a ctypes
+    array) of a matrix whose three columns pass the checks; raises
+    otherwise.  Checked once per set of columns."""
+    cols = (arrays.used, arrays.totals, arrays.eligible)
+    got = _checked_plan_cols.get(cols, device)
+    if got is not None:
+        return got
+    n = arrays.used.shape[0]
+    _check("used", arrays.used, torch.float32, (n, 3), device)
+    _check("totals", arrays.totals, torch.float32, (n, 3), device)
+    _check("eligible", arrays.eligible, torch.bool, (n,), device)
+    return _checked_plan_cols.put(cols, device, n)
+
+
 def verify_plan_fit(arrays, rows, deltas, eligible_required):
     """The plan applier's AllocsFit re-check of K plan rows against the
     matrix (JAX ``verify_plan_fit``) — the ``verify_plan_fit`` kernel
@@ -1400,25 +1430,19 @@ def verify_plan_fit(arrays, rows, deltas, eligible_required):
         return verify_plan_fit_plain(arrays, rows, deltas, eligible_required)
     if dev.type != "cuda":
         raise ValueError(f"verify_plan_fit: unsupported device {dev}")
-    n, k = arrays.used.shape[0], rows.shape[0]
-    _check("used", arrays.used, torch.float32, (n, 3), dev)
-    _check("totals", arrays.totals, torch.float32, (n, 3), dev)
-    _check("eligible", arrays.eligible, torch.bool, (n,), dev)
+    n, cols = _plan_cols(arrays, dev)
+    k = rows.shape[0]
     _check("rows", rows, torch.int32, (k,), dev)
     _check("deltas", deltas, torch.float32, (k, 3), dev)
     _check("eligible_required", eligible_required, torch.bool, (k,), dev)
     if k == 0:
         return torch.ones((0,), dtype=torch.bool, device=dev)
-    from .build import load_library
-
-    lib = load_library("verify_plan_fit")
-    out = torch.empty((k,), dtype=torch.bool, device=dev)
+    launch = _entry("verify_plan_fit", "nomad_verify_plan_fit")
+    out = torch.empty(k, dtype=torch.bool, device=dev)
     with _on(dev):
-        rc = lib.nomad_verify_plan_fit(
-            _ptr(arrays.used), _ptr(arrays.totals), _ptr(arrays.eligible),
-            _ptr(rows), _ptr(deltas), _ptr(eligible_required), _ptr(out),
-            k, n, _stream(dev),
-        )
+        rc = launch(cols, rows.data_ptr(), deltas.data_ptr(),
+                    eligible_required.data_ptr(), out.data_ptr(), k, n,
+                    _stream(dev))
     if rc != 0:
         raise RuntimeError(f"verify_plan_fit launch failed: CUDA error {rc}")
     verify_plan_fit.launches += 1
@@ -1675,10 +1699,8 @@ def sharded_place_shape(n: int, lanes: int, d: int, n_placements: int,
     key = ("sharded_place", n, lanes, d, n_placements, features)
     got = _shapes.get(key)
     if got is None:
-        from .build import load_library
-
         buf = (ctypes.c_longlong * 5)()
-        load_library("sharded_place").nomad_sharded_place_shape(
+        _entry("sharded_place", "nomad_sharded_place_shape")(
             n, lanes, d, n_placements, features.c_width, features.a_width,
             features.s_width, int(features.preempt), int(features.ports), buf)
         got = dict(cluster=buf[0], span=buf[1], cta_bytes=buf[2],
@@ -1737,12 +1759,10 @@ def sharded_place(groups, n_placements: int,
         raise ValueError(f"sharded_place: unsupported device {devs}")
     if not 1 <= n_placements <= 64:
         raise ValueError("n_placements must be in [1, 64]")
-    from .build import load_library
-
-    lib = load_library("sharded_place")
-    if lib.nomad_sharded_pair_bytes() != ctypes.sizeof(_SPPair):
+    if _entry("sharded_place", "nomad_sharded_pair_bytes")() != ctypes.sizeof(_SPPair):
         raise RuntimeError("sharded_place: csrc/sharded_place.cu's SPPair "
                            "disagrees with ops/kernels.py _SPPair")
+    launch = _entry("sharded_place", "nomad_sharded_place")
     n_rows = len(groups)
     shards_max = max(len(row) for row in groups)
     if shards_max > SHARDED_MAX_SHARDS:
@@ -1809,7 +1829,7 @@ def sharded_place(groups, n_placements: int,
                     stream = torch.cuda.current_stream(dev)
                     for src in waits[dev]:
                         stream.wait_event(events[src])
-                rc = lib.nomad_sharded_place(*fixed[chunk], step, *tail,
+                rc = launch(*fixed[chunk], step, *tail,
                                              _stream(dev))
             if rc != 0:
                 raise RuntimeError(
@@ -1834,6 +1854,10 @@ def sharded_place(groups, n_placements: int,
 sharded_place.launches = 0
 # Offer copies between cards' tables (the exchange; data movement).
 sharded_place.copies = 0
+
+
+# Lanes a sharded_usage call takes (csrc/sharded_place.cu SU_MAX_LANES).
+SHARDED_USAGE_MAX_LANES = 65536
 
 
 def sharded_usage_plain(used, packed, req_f, n_batch: int,
@@ -1865,31 +1889,41 @@ def sharded_usage_plain(used, packed, req_f, n_batch: int,
 sharded_usage_plain.calls = 0
 
 
+def _check_usage_lanes(b: int) -> None:
+    """Both devices refuse more lanes than the card's kernel lists (its
+    shared-memory list of picks holds 16-bit lanes), so a step the CPU
+    takes also launches on the card."""
+    if b > SHARDED_USAGE_MAX_LANES:
+        raise ValueError(f"sharded_usage: {b} lanes, at most "
+                         f"{SHARDED_USAGE_MAX_LANES}")
+
+
 def sharded_usage(used, packed, req_f, n_batch: int, row_offset: int = 0):
     """The sharded step's usage update on one node shard — the
     ``sharded_usage`` kernel (``csrc/sharded_place.cu``) on the card,
-    :func:`sharded_usage_plain` on the CPU.  Every operand lies on the
-    shard's device; returns a new (n, 3) f32 tensor there."""
+    :func:`sharded_usage_plain` on the CPU.  At most
+    ``SHARDED_USAGE_MAX_LANES`` lanes.  Every operand lies on the shard's
+    device; returns a new (n, 3) f32 tensor there."""
+    b = packed.shape[0]
+    _check_usage_lanes(b)
     dev = used.device
     if dev.type == "cpu":
         return sharded_usage_plain(used, packed, req_f, n_batch, row_offset)
     if dev.type != "cuda":
         raise ValueError(f"sharded_usage: unsupported device {dev}")
     n = used.shape[0]
-    b, p = packed.shape[0], packed.shape[1]
+    p = packed.shape[1]
     _check("used", used, torch.float32, (n, 3), dev)
     _check("packed", packed, torch.float32, (b, p, PACKED_WIDTH), dev)
     _check("req_f", req_f, torch.float32, (b, REQ_FLOAT_WIDTH), dev)
     if n_batch < 1 or b % n_batch or row_offset < 0:
         raise ValueError("sharded_usage: bad n_batch or row_offset")
-    from .build import load_library
-
-    lib = load_library("sharded_place")
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    launch = _entry("sharded_place", "nomad_sharded_usage")
+    out = torch.empty_like(used)
     with _on(dev):
-        rc = lib.nomad_sharded_usage(
-            used.data_ptr(), packed.data_ptr(), req_f.data_ptr(),
-            out.data_ptr(), n, row_offset, b, p, n_batch, _stream(dev))
+        rc = launch(used.data_ptr(), packed.data_ptr(), req_f.data_ptr(),
+                    out.data_ptr(), n, row_offset, b, p, n_batch,
+                    _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sharded_usage launch failed: CUDA error {rc}")
     sharded_usage.launches += 1

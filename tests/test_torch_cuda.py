@@ -803,3 +803,164 @@ def test_sharded_place_edge_cases_on_the_card(cuda, case, n_dev):
             arrays, arrays.used, *on[:-1], p))
         dead = torch.from_numpy(~w["lane_mask"]).to(cuda)
         assert (got[dead][:, :, k.PACKED_ROW] == -1).all()
+
+
+# ---------------------------------------------------------------------------
+# sharded_usage and verify_plan_fit at the edges of their staging
+# ---------------------------------------------------------------------------
+
+
+def usage_on(case, dev):
+    """A case of tests/torch_edge_cases.py ``usage_case`` on ``dev``:
+    ((used, packed, req_f), the case)."""
+    w = edge_cases.usage_case(case)
+    ops = edge_cases.usage_operands(w, k.PACKED_WIDTH, k.REQ_FLOAT_WIDTH,
+                                    k.REQ_FLOAT_OFF["ask"][0])
+    return tuple(torch.from_numpy(x).to(dev) for x in ops), w
+
+
+def usage_plain(ops, w):
+    return k.sharded_usage_plain(*(x.cpu() for x in ops), w["n_batch"],
+                                 w["row_offset"])
+
+
+def same_bits(got, want) -> bool:
+    return torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", edge_cases.USAGE_CASES)
+def test_sharded_usage_edge_cases(cuda, case):
+    """Every case (B of 1, 63, 64, 4,096 and the limit, ragged spans, one
+    hot row across both batch rows, no pick in the window, the last
+    shard, order-sensitive asks): the kernel equals its plain version bit
+    for bit, one launch and no plain call."""
+    ops, w = usage_on(case, cuda)
+    before = (k.sharded_usage.launches, k.sharded_usage_plain.calls)
+    got = k.sharded_usage(*ops, w["n_batch"], w["row_offset"])
+    torch.cuda.synchronize()
+    assert (k.sharded_usage.launches, k.sharded_usage_plain.calls) == (
+        before[0] + 1, before[1])
+    assert same_bits(got, usage_plain(ops, w))
+
+
+@pytest.mark.cuda
+def test_sharded_usage_unaligned_rows(cuda):
+    """A shard's usage that starts off a 16-byte boundary takes the
+    kernel's scalar copy, with the same result."""
+    ops, w = usage_on("b4096", cuda)
+    used = torch.cat([ops[0][:1], ops[0]])[1:]
+    assert used.is_contiguous() and used.data_ptr() % 16
+    got = k.sharded_usage(used, *ops[1:], w["n_batch"], w["row_offset"])
+    assert same_bits(got, usage_plain((used, *ops[1:]), w))
+
+
+@pytest.mark.cuda
+def test_sharded_usage_refuses_lanes_past_the_limit(cuda):
+    """One lane past SHARDED_USAGE_MAX_LANES is refused on both devices
+    before any launch."""
+    (used, packed, req_f), w = usage_on("limit", cuda)
+    more = torch.cat([packed, packed[:2]])
+    more_f = torch.cat([req_f, req_f[:2]])
+    before = k.sharded_usage.launches
+    for dev in (cuda, torch.device("cpu")):
+        with pytest.raises(ValueError, match="at most"):
+            k.sharded_usage(used.to(dev), more.to(dev), more_f.to(dev),
+                            w["n_batch"], w["row_offset"])
+    assert k.sharded_usage.launches == before
+
+
+def plan_on(kk, dev, padding_only=False):
+    """A plan of tests/torch_edge_cases.py ``plan_case`` on ``dev``:
+    (matrix columns, (rows, deltas, elig_required), the numpy case)."""
+    import types
+
+    w = edge_cases.plan_case(kk, padding_only=padding_only)
+    cols = types.SimpleNamespace(**{
+        f: torch.from_numpy(w[f]).to(dev)
+        for f in ("used", "totals", "eligible")})
+    ins = tuple(torch.from_numpy(w[f]).to(dev)
+                for f in ("rows", "deltas", "elig_required"))
+    return cols, ins, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_only", [False, True])
+@pytest.mark.parametrize("kk", edge_cases.PLAN_ROWS)
+def test_verify_plan_fit_edge_plans(cuda, kk, padding_only):
+    """Plans of 1, 3, 255, 10,000 and 80,000 rows (most a multiple of no
+    row group), rows past the matrix, and all-padding plans: the kernel
+    equals its plain version and the applier's host_verify, every byte 0
+    or 1, one launch and no plain call."""
+    from nomad_tpu_torch.server.plan_apply import host_verify
+
+    cols, ins, w = plan_on(kk, cuda, padding_only)
+    before = (k.verify_plan_fit.launches, k.verify_plan_fit_plain.calls)
+    got = k.verify_plan_fit(cols, *ins)
+    torch.cuda.synchronize()
+    assert (k.verify_plan_fit.launches, k.verify_plan_fit_plain.calls) == (
+        before[0] + 1, before[1])
+    assert got.dtype == torch.bool and got.shape == (kk,)
+    assert int(got.view(torch.uint8).max()) <= 1
+    assert torch.equal(got.cpu(), k.verify_plan_fit_plain(cols, *ins).cpu())
+    hv = host_verify({f: w[f] for f in ("used", "totals", "eligible")},
+                     w["rows"], list(w["deltas"]), w["elig_required"])
+    np.testing.assert_array_equal(got.cpu().numpy(), hv)
+    if padding_only:
+        assert bool(got.all())
+
+
+@pytest.mark.cuda
+def test_verify_plan_fit_unaligned_operands(cuda):
+    """Operands that start off their wide accesses' alignment take the
+    scalar path, with the same verdicts."""
+    cols, ins, _ = plan_on(10_000, cuda)
+    shifted = tuple(torch.cat([x[:1], x])[1:] for x in ins)
+    assert all(x.is_contiguous() for x in shifted)
+    assert shifted[0].data_ptr() % 16 and shifted[2].data_ptr() % 4
+    got = k.verify_plan_fit(cols, *shifted)
+    assert int(got.view(torch.uint8).max()) <= 1
+    assert torch.equal(got.cpu(),
+                       k.verify_plan_fit_plain(cols, *shifted).cpu())
+
+
+@pytest.mark.cuda
+def test_usage_and_plan_fit_wrappers_refuse_bad_operands(cuda):
+    """Both trimmed wrappers keep every check: a wrong dtype raises
+    TypeError, another device, shape or a non-contiguous operand
+    ValueError, the matrix columns too after a good call with the same
+    matrix; nothing launches.  (``used`` names the device: on the CPU it
+    takes the plain version.)"""
+    ops, w = usage_on("b64", cuda)
+    cols, ins, _ = plan_on(255, cuda)
+    k.sharded_usage(*ops, w["n_batch"], w["row_offset"])
+    k.verify_plan_fit(cols, *ins)
+    torch.cuda.synchronize()
+    before = (k.sharded_usage.launches, k.verify_plan_fit.launches)
+    bad = {
+        "dtype": (lambda x: x.double(), TypeError),
+        "device": (lambda x: x.cpu(), ValueError),
+        "shape": (lambda x: x[..., :-1].contiguous(), ValueError),
+        "contiguity": (lambda x: torch.stack([x, x], dim=-1)[..., 0],
+                       ValueError),
+    }
+    for kind, (change, error) in bad.items():
+        for i in range(3):
+            args = list(ops)
+            args[i] = change(args[i])
+            if not (i == 0 and kind == "device"):
+                with pytest.raises(error):
+                    k.sharded_usage(*args, w["n_batch"], w["row_offset"])
+            args = list(ins)
+            args[i] = change(args[i])
+            with pytest.raises(error):
+                k.verify_plan_fit(cols, *args)
+        for f in ("used", "totals", "eligible"):
+            if f == "used" and kind == "device":
+                continue
+            other = type(cols)(**vars(cols))
+            setattr(other, f, change(getattr(cols, f)))
+            with pytest.raises(error):
+                k.verify_plan_fit(other, *ins)
+    assert (k.sharded_usage.launches, k.verify_plan_fit.launches) == before

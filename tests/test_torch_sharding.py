@@ -270,6 +270,54 @@ def test_sharded_schedule_step_matches_jax(world, eight_devices, n_dev,
     assert torch.equal(tk.pack_batch_result(got), tk.pack_batch_result(want))
 
 
+def crowded_world():
+    """Twelve nodes of which only two fit the asks, of different sizes
+    (no tie): every lane of both batch rows picks the same node.  Three
+    job shapes, so the picked row sums several asks in lane order."""
+    from nomad_tpu.structs import NodeResources
+
+    m = NodeMatrix(capacity=16)
+    for i in range(12):
+        cpu, mem = {4: (20000, 40000), 9: (12000, 24000)}.get(i, (800, 512))
+        m.upsert_node(jmock.node(resources=NodeResources(
+            cpu=cpu, memory_mb=mem, disk_mb=100 * 1024)))
+    reqs = []
+    for cpu, mem in ((1200, 900), (1500, 700), (900, 1100)):
+        job = jmock.job()
+        job.task_groups[0].tasks[0].resources.cpu = cpu
+        job.task_groups[0].tasks[0].resources.memory_mb = mem
+        reqs.append(RequestEncoder(m).compile(job, job.task_groups[0]).request)
+    reqs = stack([reqs[i % 3] for i in range(12)])
+    return m, reqs, lane_operands(12, m.capacity, len(m.class_ids))
+
+
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_sharded_step_usage_where_every_lane_picks_one_node(eight_devices,
+                                                            n_dev):
+    """Many lanes of both batch rows pick the same node: the usage after
+    the step (``sharded_usage`` on each shard) equals the JAX step's
+    ``used_after`` on every row, and the picked node carries all twelve
+    asks."""
+    m, reqs, ops = crowded_world()
+    rows, _, _, _, used_after = jax_step(m, reqs, ops, n_dev, 2)
+    assert len(set(rows.tolist())) == 1 and rows[0] >= 0
+    pm = port_matrix(m)
+    mesh = port_mesh(n_dev, 2)
+    sharded = tsh.shard_matrix_arrays(mesh, pm.sync())
+    ri, rf = port_requests(reqs)
+    tk.reset_counts()
+    got, got_used = tsh.sharded_schedule_step(mesh)(
+        sharded, *ops[2:5], ri.numpy(), rf.numpy(), *ops[5:])
+    np.testing.assert_array_equal(got.rows.numpy(), rows)
+    for i in range(2):
+        np.testing.assert_array_equal(torch.cat(got_used[i]).numpy(),
+                                      used_after)
+    base = pm.sync().used.numpy()
+    hot = int(rows[0])
+    assert (used_after[hot] - base[hot] == reqs.ask.sum(axis=0)).all()
+    assert tk.sharded_usage_plain.calls == n_dev
+
+
 def test_sharded_schedule_step_tie_goes_to_lowest_row(eight_devices):
     """Two identical empty nodes, one on each half of the node axis: the
     port (every mesh, and the unsharded kernel) picks the lower row."""

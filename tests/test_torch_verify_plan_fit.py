@@ -4,12 +4,16 @@ The applier's AllocsFit re-check, per plan row: ``used + delta <=
 totals`` on all three dimensions and the node eligible where the row
 places new allocations; padding rows (-1) pass.  The port's plain
 version, the JAX jit and the port applier's numpy twin
-(``server/plan_apply.py:host_verify``) must agree on every row.  The
-hand-written kernel is held against the plain version on the card by
-tests/test_torch_cuda.py and ``chip_smoke.py``.
+(``server/plan_apply.py:host_verify``) must agree on every row, on the
+plans of ``tests/torch_edge_cases.py`` (``plan_case``) that the card
+tests use too.  The hand-written kernel is held against the plain
+version on the card by tests/test_torch_cuda.py and ``chip_smoke.py``;
+the wrapper's one-predicate operand check and its column memo are
+pinned here.
 """
 
 import types
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ from nomad_tpu_torch.ops import kernels as tk
 from nomad_tpu_torch.server import plan_apply
 from nomad_tpu_torch.server.server import Server, ServerConfig
 
+import torch_edge_cases as edge_cases
 from torch_parity import build_cluster, port_matrix, t
 
 torch.set_num_threads(1)
@@ -198,6 +203,81 @@ def test_applier_host_verify_matches_plain(monkeypatch):
         got = tk.verify_plan_fit(arrays, t(c["rows"]), t(c["deltas"]),
                                  t(c["elig_required"]))
         np.testing.assert_array_equal(got.numpy(), c["verdicts"])
+
+
+class Cols(NamedTuple):
+    """The three columns ``verify_plan_fit`` reads (a pytree for JAX)."""
+
+    used: object
+    totals: object
+    eligible: object
+
+
+@pytest.mark.parametrize("padding_only", [False, True])
+@pytest.mark.parametrize("k", edge_cases.PLAN_ROWS)
+def test_plan_cases_match_jax_and_host_verify(k, padding_only):
+    """The plans the card tests hold the kernel to (tests/torch_edge_cases
+    ``plan_case``: lengths a multiple of no row group, rows past the
+    matrix, padding, exact room, negative deltas), and each as an
+    all-padding plan: the port's plain version equals the JAX jit and the
+    applier's ``host_verify`` on every row."""
+    w = edge_cases.plan_case(k, padding_only=padding_only)
+    cols = {f: w[f] for f in ("used", "totals", "eligible")}
+    want = np.asarray(jk.verify_plan_fit(
+        Cols(**{f: jnp.asarray(v) for f, v in cols.items()}),
+        jnp.asarray(w["rows"]), jnp.asarray(w["deltas"]),
+        jnp.asarray(w["elig_required"])))
+    got = tk.verify_plan_fit(Cols(**{f: t(v) for f, v in cols.items()}),
+                             t(w["rows"]), t(w["deltas"]),
+                             t(w["elig_required"])).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        plan_apply.host_verify(cols, w["rows"], list(w["deltas"]),
+                               w["elig_required"]), want)
+    if padding_only:
+        assert want.all()
+    elif k >= 255:
+        assert want.any() and not want.all()
+
+
+BAD_OPERANDS = {
+    "dtype": (lambda x: x.double(), TypeError),
+    "shape": (lambda x: x[:-1], ValueError),
+    "device": (lambda x: x.to("meta"), ValueError),
+    "contiguity": (lambda x: torch.stack([x, x], dim=-1)[..., 0], ValueError),
+    "not_a_tensor": (lambda x: x.numpy(), TypeError),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BAD_OPERANDS))
+def test_check_names_the_bad_operand(kind):
+    """The wrappers' operand check lets a good operand through (a
+    ``Parameter`` too) and raises, naming the operand, for a bad one."""
+    good = torch.zeros((6, 3))
+    cpu = torch.device("cpu")
+    tk._check("deltas", good, torch.float32, (6, 3), cpu)
+    tk._check("deltas", torch.nn.Parameter(good), torch.float32, (6, 3), cpu)
+    change, error = BAD_OPERANDS[kind]
+    with pytest.raises(error, match="^deltas: "):
+        tk._check("deltas", change(good), torch.float32, (6, 3), cpu)
+
+
+def test_plan_columns_are_checked_once_per_set():
+    """``_plan_cols`` checks used, totals and eligible once per set of
+    columns and gives their pointers; another set is checked anew, and a
+    bad column raises even after a good call."""
+    cpu = torch.device("cpu")
+    good = Cols(torch.zeros((8, 3)), torch.ones((8, 3)),
+                torch.ones((8,), dtype=torch.bool))
+    n, ptrs = tk._plan_cols(good, cpu)
+    assert n == 8 and list(ptrs) == [c.data_ptr() for c in good]
+    assert tk._plan_cols(good, cpu)[1] is ptrs
+    with pytest.raises(TypeError):
+        tk._plan_cols(good._replace(eligible=torch.ones((8,))), cpu)
+    with pytest.raises(ValueError):
+        tk._plan_cols(good._replace(totals=torch.ones((7, 3))), cpu)
+    other = good._replace(used=torch.zeros((8, 3)))
+    assert tk._plan_cols(other, cpu)[1] is not ptrs
 
 
 def test_wrapper_refuses_other_devices():

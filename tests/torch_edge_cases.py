@@ -31,7 +31,9 @@ The cases stress what the kernels' tiling and hoisting make risky:
 :func:`sharded_case` builds the node-sharded scan's cases the same way
 (``SHARDED_CASES``: spread values entering mid-scan across shards,
 distinct_hosts, ties across shards, shards with no candidate, lanes at
-the delta cap).
+the delta cap).  :func:`usage_case` and :func:`plan_case` give numpy
+operands of ``sharded_usage`` and ``verify_plan_fit`` at the lane counts
+and plan lengths their kernels' staging makes risky.
 """
 
 import types
@@ -605,3 +607,163 @@ def first_rows(arrays, n):
     """A DeviceArrays-like tuple cut to its first n rows (each column a
     contiguous view)."""
     return type(arrays)(*[col[:n] for col in arrays])
+
+
+# ---------------------------------------------------------------------------
+# sharded_usage: the step's usage update on one node shard
+# ---------------------------------------------------------------------------
+
+# The wrapper's lane limit (ops/kernels.py SHARDED_USAGE_MAX_LANES, the
+# kernel's 16-bit list lanes).
+USAGE_MAX_LANES = 65_536
+# Each case: lanes, batch rows, the shard's rows and its row offset in a
+# matrix of USAGE_MATRIX_ROWS rows.
+# * ``b1``, ``b63`` (three batch rows), ``b64``, ``b4096`` — B as the
+#   step runs it, on the x4 mesh's node shard 1 (5,120 rows from 5,120);
+# * ``ragged`` — 5,119 rows: a multiple of no CTA span;
+# * ``one_row`` — every pick of both batch rows on one row;
+# * ``all_failed`` — every pick -1;
+# * ``outside`` — every pick a row of another shard;
+# * ``last_shard`` — node shard 3 of x8 (2,560 rows from 7,680), picks
+#   over the whole matrix and past it;
+# * ``grouping`` — asks of 2**24 and 1.0 on a few rows: the sum depends
+#   on the order and on where a batch row's part closes;
+# * ``runs`` — most picks on the shard's first 40 rows (one CTA's span
+#   on 132 SMs, part of one on fewer) as runs of 16 to 70 lanes on one
+#   row between runs of 1 to 3 on other rows, a run across the two batch
+#   rows: 16-entry blocks on one row, blocks mixing rows and windows of
+#   both; a window on one row with a short tail; a window of runs on two
+#   rows; order-sensitive asks;
+# * ``limit`` — USAGE_MAX_LANES lanes.
+USAGE_MATRIX_ROWS = 10_240
+USAGE_SHAPES = {
+    "b1": (1, 1, 5120, 5120),
+    "b63": (63, 3, 5120, 5120),
+    "b64": (64, 2, 5120, 5120),
+    "b4096": (4096, 2, 5120, 5120),
+    "ragged": (4096, 2, 5119, 5120),
+    "one_row": (4096, 2, 5120, 5120),
+    "all_failed": (4096, 2, 5120, 5120),
+    "outside": (4096, 2, 2560, 2560),
+    "last_shard": (4096, 2, 2560, 7680),
+    "grouping": (4096, 2, 5120, 5120),
+    "runs": (4096, 2, 5120, 5120),
+    "limit": (USAGE_MAX_LANES, 2, 5120, 5120),
+}
+USAGE_CASES = tuple(USAGE_SHAPES)
+
+
+def usage_case(name, seed=41):
+    """numpy operands of ``sharded_usage`` for case ``name``: ``used``
+    (n, 3) f32 (a few rows -0.0, which a row without picks must turn into
+    +0.0 as the plain version's ``used + 0.0`` does), ``picks`` (B,) f32
+    global rows (-1 a failed pick), ``asks`` (B, 3) f32, ``n_batch`` and
+    ``row_offset``; :func:`usage_operands` packs them."""
+    rng = np.random.default_rng(seed)
+    b, n_batch, n, off = USAGE_SHAPES[name]
+    used = np.round(rng.uniform(0, 4000, (n, 3))).astype(np.float32)
+    used[::97] = -0.0
+    picks = rng.integers(0, USAGE_MATRIX_ROWS, b).astype(np.float32)
+    picks[rng.random(b) < 0.05] = -1.0
+    asks = rng.uniform(10, 1500, (b, 3)).astype(np.float32)
+    if name == "b1":
+        picks[0] = off + 7
+    elif name == "one_row":
+        picks[:] = off + n // 3
+    elif name == "all_failed":
+        picks[:] = -1.0
+    elif name == "outside":
+        picks[:] = np.where(rng.random(b) < 0.5,
+                            rng.integers(0, off, b),
+                            rng.integers(off + n, USAGE_MATRIX_ROWS, b))
+    elif name == "last_shard":
+        picks[::5] = rng.integers(off, off + n, len(picks[::5]))
+        picks[1::17] = USAGE_MATRIX_ROWS + 3  # past the matrix
+    elif name == "grouping":
+        hot = off + np.array([0, 1, 2, n - 1])
+        picks[::2] = rng.choice(hot, len(picks[::2]))
+        asks[::2] = 1.0
+        asks[::7] = np.float32(2.0 ** 24)
+        asks[::11] = -np.float32(2.0 ** 24)
+    elif name == "runs":
+        at = 0
+        while at < b:
+            long = rng.random() < 0.5
+            size = int(rng.integers(16, 71) if long else rng.integers(1, 4))
+            picks[at:at + size] = off + rng.integers(0, 40)
+            at += size
+        picks[b // 2 - 20:b // 2 + 20] = off + 5
+        elsewhere = rng.random(b) < 0.04
+        picks[elsewhere] = rng.integers(0, USAGE_MATRIX_ROWS,
+                                        int(elsewhere.sum()))
+        picks[rng.random(b) < 0.01] = -1.0
+        # On 132 SMs (spans of 40 rows), the first batch row's picks in
+        # the second CTA: 512 on one row (a window on one row), then 16 on
+        # another and 5 on the first (a window of a run and a block cut
+        # short, beside the first window's stale entries on its row); in
+        # the third: 16 on one row and 16 on another (a window of runs on
+        # two rows).
+        second, third = (picks >= off + 40) & (picks < off + 80), \
+            (picks >= off + 80) & (picks < off + 120)
+        picks[second | third] = -1.0
+        picks[100:612] = off + 45
+        picks[612:628] = off + 46
+        picks[628:633] = off + 45
+        picks[1000:1016] = off + 85
+        picks[1016:1032] = off + 86
+        asks[::2] = 1.0
+        asks[::9] = np.float32(2.0 ** 24)
+    elif name not in USAGE_SHAPES:
+        raise ValueError(name)
+    return dict(used=used, picks=picks, asks=asks, n_batch=n_batch,
+                row_offset=off)
+
+
+def usage_operands(w, packed_width, req_float_width, ask_offset, p=1):
+    """(used, packed (B, p, packed_width), req_f (B, req_float_width)) of
+    a :func:`usage_case`, numpy: the picks in step 0's row column, the
+    other columns and fields noise."""
+    rng = np.random.default_rng(7)
+    b = w["picks"].shape[0]
+    packed = rng.uniform(-3, 3, (b, p, packed_width)).astype(np.float32)
+    packed[:, 0, 0] = w["picks"]
+    req_f = rng.uniform(-5, 5, (b, req_float_width)).astype(np.float32)
+    req_f[:, ask_offset:ask_offset + 3] = w["asks"]
+    return w["used"], packed, req_f
+
+
+# ---------------------------------------------------------------------------
+# verify_plan_fit: plans of every length the kernel's row groups make risky
+# ---------------------------------------------------------------------------
+
+PLAN_ROWS = (1, 3, 255, 10_000, 80_000)
+PLAN_MATRIX_ROWS = 10_240
+
+
+def plan_case(k, n=PLAN_MATRIX_ROWS, seed=53, padding_only=False):
+    """numpy operands of ``verify_plan_fit`` for a plan of ``k`` rows on
+    ``n`` nodes: ``used``/``totals`` (n, 3) f32, ``eligible`` (n,) bool,
+    ``rows`` (k,) i32 (padding -1, some past the matrix), ``deltas`` (k,
+    3) f32 (past the node's room, exactly its room, negative),
+    ``elig_required`` (k,) bool.  ``padding_only``: every row -1."""
+    rng = np.random.default_rng(seed)
+    totals = np.round(rng.uniform(2000, 16000, (n, 3))).astype(np.float32)
+    used = np.round(totals * rng.uniform(0.0, 0.9, (n, 1))).astype(np.float32)
+    eligible = rng.random(n) < 0.9
+    rows = rng.integers(0, n, k).astype(np.int32)
+    rows[rng.random(k) < 0.05] = -1
+    rows[rng.random(k) < 0.03] = n + rng.integers(0, 5)
+    if k >= 3:
+        rows[-1] = n  # past the matrix on the ragged end
+        rows[-2] = -1
+    if padding_only:
+        rows[:] = -1
+    safe = np.clip(rows, 0, n - 1)
+    room = totals[safe] - used[safe]
+    deltas = (room * rng.uniform(0.3, 1.3, (k, 3))).astype(np.float32)
+    deltas[rng.random(k) < 0.05] *= -1.0
+    exact = rng.random(k) < 0.05
+    deltas[exact] = room[exact]
+    elig_required = rng.random(k) < 0.6
+    return dict(used=used, totals=totals, eligible=eligible, rows=rows,
+                deltas=deltas, elig_required=elig_required)
