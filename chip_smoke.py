@@ -267,6 +267,44 @@ Phases:
    seconds, the HTTP burst's evals/s beside the in-process server
    phase's, submit -> running of the agents' jobs, the migration and
    drain seconds.
+13. replicated — replication and membership in front of the kernels.
+   13a, in-process at full width: a ``Agent(cfg, device="cuda")`` server
+   agent with ``raft_enabled`` and the cluster secret (the server phases'
+   config, blocked retries every 2 s) leads alone and takes the server
+   phases' 10,000 ``server_node``s, their pre-loaded usage carried as
+   node reservations (a reservation replicates; usage written straight
+   into one server's matrix would not).  ``server join`` (the CLI) adds
+   two more agents one at a time; each catches up by snapshot install
+   (10,000 entries are more than the log ring's 4,096) before the next
+   joins.  64 count-2 service jobs go in from 8 threads to whichever
+   server leads; after 32 acknowledged submits the leader is shut down.
+   A survivor that caught up by snapshot wins the election; its first
+   ``NodeMatrix.sync`` is a full upload.  When the shutdown has returned
+   the counts are zeroed, and 8 more jobs go to the new leader once the
+   burst's evals complete.  Every acknowledged submit is on both
+   survivors and its eval completes; both survivors' ``to_snapshot_wire()``
+   images are equal; the 144 allocs fit by the host AllocsFit; the new
+   leader's device matrix, read back, equals one built from scratch from
+   its store on every node's row; since the counts were zeroed
+   ``fused_place`` and ``allocs_fit_verify`` launched and no plain
+   version or ``place_batch``, and neither the old leader's nor the
+   other survivor's coalescer dispatched, so the launches are the new
+   leader's.  Logs the install seconds, the
+   first sync's bytes and milliseconds, the seconds from the shutdown's
+   start to the election and to the first placement, and the burst's
+   evals/s.  13b, processes: three processes each build one kernel
+   into one empty directory at once and load it; then three ``python
+   -m nomad_tpu_torch.cli agent --server-only --device cuda --config
+   <file>`` processes (peers and the secret in the file; 8 workers,
+   capacity 1,280) elect a leader, each holding its own CUDA context;
+   1,024 nodes (13a carries the full width) register through
+   ``FailoverRPC``; the same burst goes over HTTP from 8 threads, and
+   the leader's process is SIGKILLed after 32 acknowledged submits; the
+   survivors elect a leader, every acknowledged eval completes there, its
+   ``/v1/metrics`` counts fused launches and 128 allocs read back; ``server
+   members`` and ``server remove-peer`` of the dead address run through
+   the CLI; SIGINT stops the survivors, each with exit code 0.  Logs the
+   election seconds after the kill and the burst's evals/s.
 14. sharded — K9, the node-sharded dispatch, at the same width (10,000
    nodes, capacity 10240, 64 lanes, P=16).  On each mesh of
    ``["cuda:0"] * 4`` (batch 2 x node 2) and ``["cuda:0"] * 8`` (2 x 4)
@@ -1525,14 +1563,14 @@ def service_job(i: int):
     return job
 
 
-def check_burst(srv, evals, label: str) -> dict:
-    """Every job of a service burst holds exactly SERVER_COUNT allocs, each
-    on a registered node whose usage fits its capacity; returns the
-    burst's counts."""
+def check_burst(srv, evals, label: str, n_jobs: int = SERVER_JOBS) -> dict:
+    """Every job of a service burst (``n_jobs`` of them) holds exactly
+    SERVER_COUNT allocs, each on a registered node whose usage fits its
+    capacity; returns the burst's counts."""
     statuses = {srv.store.eval_by_id(e.id).status for e in evals}
     allocs = [a for a in srv.store.allocs.values()
               if not a.terminal_status()]
-    want = SERVER_JOBS * SERVER_COUNT
+    want = n_jobs * SERVER_COUNT
     if len(allocs) != want:
         raise AssertionError(f"{label}: {len(allocs)} allocations, "
                              f"expected {want}")
@@ -5481,6 +5519,851 @@ def phase_front_door(card: str, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: replication and membership
+# ---------------------------------------------------------------------------
+
+REPL_SERVERS = 3
+REPL_SECRET = "smoke-cluster-secret"
+REPL_THREADS = 8  # submitting threads of both bursts
+REPL_KILL_AT = SERVER_JOBS // 2  # acknowledged submits before the kill
+# 13a: jobs submitted to the new leader once the old one's shutdown has
+# returned, so that the kernel counts read after them are its own.
+REPL_AFTER_JOBS = 8
+REPL_WAIT_S = 180.0  # any one condition of the phase
+REPL_PROC_NODES = 1024  # 13b's nodes: 13a carries the full width
+REPL_PROC_CAPACITY = 1280
+REPL_PROC_WORKERS = 8
+# 13a's raft timers: Nomad's defaults (raft_multiplier 1: 1 s).  The three
+# servers of 13a share one interpreter, and the JSON of a 10,000-node image
+# holds its lock for tenths of a second at a time, longer than the
+# reference's 0.25-0.5 s election timeout; 13b's processes keep that one.
+REPL_ELECTION_TIMEOUT = (1.0, 2.0)
+REPL_HEARTBEAT = 0.1
+REPL_SERVER_HCL = """
+server {{
+  workers           = {workers}
+  node_capacity     = {capacity}
+  heartbeat_min_ttl = 3600
+  heartbeat_max_ttl = 7200
+  server_id         = "{server_id}"
+  peers             = [{peers}]
+  cluster_secret    = "{secret}"
+}}
+client {{
+  enabled = false
+}}
+"""
+# 13b: three processes build one kernel into one empty directory at once.
+REPL_COLD_BUILD = """
+import sys
+from nomad_tpu_torch.ops import build
+build.BUILD_DIR = __import__("pathlib").Path(sys.argv[1])
+build.KERNELS = ("verify_plan_fit",)
+build.load_library("verify_plan_fit")
+print("loaded", build._lib_path("verify_plan_fit").name)
+"""
+
+
+def reserved_node(i: int, usage) -> "object":
+    """``server_node(i)`` with the server phases' pre-loaded usage as a
+    reservation: a reservation is part of the node, so it replicates
+    (usage written straight into one server's matrix would not)."""
+    from nomad_tpu_torch.structs.types import NodeReservedResources
+
+    node = server_node(i)
+    r = node.reserved
+    node.reserved = NodeReservedResources(
+        cpu=r.cpu + int(usage[0]), memory_mb=r.memory_mb + int(usage[1]),
+        disk_mb=r.disk_mb + int(usage[2]))
+    return node
+
+
+def seeded_usage(n: int) -> np.ndarray:
+    """The seeded usage ``register_cluster`` pre-loads on ``n`` nodes."""
+    node = server_node(0)
+    totals = np.array([node.resources.cpu - node.reserved.cpu,
+                       node.resources.memory_mb - node.reserved.memory_mb,
+                       node.resources.disk_mb - node.reserved.disk_mb],
+                      np.float64)
+    rng = np.random.default_rng(7)
+    return np.round(rng.uniform(0.1, 0.6, (n, 3)) * totals)
+
+
+def repl_agent(i: int, port: int, peers, raft: bool):
+    """An in-process server agent of the cluster: the server phases'
+    config, the cluster secret, blocked retries every 2 s."""
+    from nomad_tpu_torch.api import Agent, AgentConfig
+
+    sc = server_config()
+    sc.server_id = f"server-{i}"
+    sc.peers = list(peers)
+    sc.raft_enabled = raft
+    sc.cluster_secret = REPL_SECRET
+    sc.election_timeout = REPL_ELECTION_TIMEOUT
+    sc.raft_heartbeat_interval = REPL_HEARTBEAT
+    sc.failed_eval_unblock_interval = RETRY_INTERVAL_S
+    return Agent(AgentConfig(
+        name=f"server-{i}", server_enabled=True, client_enabled=False,
+        http_host="127.0.0.1", http_port=port, server_config=sc),
+        device=FRONT_DEVICE)
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def leader_agent(agents):
+    leaders = [a for a in agents if a.server.replicator.is_leader]
+    return leaders[0] if len(leaders) == 1 else None
+
+
+def repl_state(agents) -> str:
+    """Each server's role, term, log position, node count and peers'
+    health, for a failure message."""
+    parts = []
+    for a in agents:
+        st = a.server.replicator.stats()
+        parts.append(f"{a.config.name}: {st['Role']} term {st['Term']} seq "
+                     f"{st['LastSeq']} nodes {len(a.server.store.nodes)} "
+                     f"installs {a.server.replicator.snapshots_installed} "
+                     f"peers {st['Peers']}")
+    return "; ".join(parts)
+
+
+def repl_wait(agents, pred, what: str) -> None:
+    try:
+        wait_for(pred, what, timeout_s=REPL_WAIT_S)
+    except AssertionError as exc:
+        raise AssertionError(f"replicated: {exc} ({repl_state(agents)})")
+
+
+def timed_install(srv, out: list) -> None:
+    """Record the seconds of each snapshot install the replicator hands
+    ``srv``."""
+    install = srv.install_snapshot
+
+    def traced(image, seq):
+        t0 = time.perf_counter()
+        install(image, seq)
+        out.append(time.perf_counter() - t0)
+
+    srv.install_snapshot = traced
+
+
+def timed_first_sync(m, out: dict) -> None:
+    """Record the first ``NodeMatrix.sync`` of ``m``: its milliseconds
+    (the card synchronised after it), bytes and whether it was a full
+    upload."""
+    import torch
+
+    sync_locked = m._sync_locked
+
+    def traced(dev):
+        if "ms" in out:
+            return sync_locked(dev)
+        uploads, nbytes = m.full_uploads, m.upload_bytes_total
+        t0 = time.perf_counter()
+        arrays = sync_locked(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["bytes"] = m.upload_bytes_total - nbytes
+        out["full"] = m.full_uploads == uploads + 1
+        return arrays
+
+    m._sync_locked = traced
+
+
+def timed_replicate(rep, out: dict) -> None:
+    """Count the quorum round trips of ``rep``'s writes and their
+    seconds: each runs with the store's write lock held."""
+    replicate = rep.replicate
+
+    def traced(entry):
+        t0 = time.perf_counter()
+        try:
+            replicate(entry)
+        finally:
+            out["n"] = out.get("n", 0) + 1
+            out["s"] = out.get("s", 0.0) + time.perf_counter() - t0
+
+    rep.replicate = traced
+
+
+def device_matches_scratch(srv, label: str) -> int:
+    """The server's device matrix, synced and read back, equals a matrix
+    built from scratch from its own store, field by field on every node's
+    row; returns the rows compared."""
+    from nomad_tpu_torch.state.matrix import DeviceArrays, NodeMatrix
+    from nomad_tpu_torch.state.store import StateStore
+
+    arrays = srv.matrix.run_on_device(lambda: srv.matrix.sync())
+    got = {f: getattr(arrays, f).cpu().numpy() for f in DeviceArrays._fields}
+    fresh = StateStore(matrix=NodeMatrix(capacity=srv.matrix.capacity,
+                                         device="cpu"))
+    fresh.restore(srv.store.to_snapshot_wire(), [])
+    want = fresh.matrix.snapshot_host()
+    ids = sorted(srv.matrix.row_of)
+    if ids != sorted(fresh.matrix.row_of):
+        raise AssertionError(f"{label}: the device matrix holds other nodes "
+                             "than its store")
+    rows = [srv.matrix.row_of[n] for n in ids]
+    rows_f = [fresh.matrix.row_of[n] for n in ids]
+    for f in DeviceArrays._fields:
+        a = got[f][rows].view(want[f].dtype) if got[f].dtype != want[f].dtype \
+            else got[f][rows]
+        b = want[f][rows_f]
+        if not np.array_equal(a, b, equal_nan=b.dtype.kind == "f"):
+            raise AssertionError(f"{label}: device column {f} differs from a "
+                                 "matrix built from scratch")
+    return len(rows)
+
+
+def check_failover_launches(launches: dict, label: str) -> None:
+    """After the failover the fused path ran its two kernels, and neither
+    a plain version nor the staged kernel ran."""
+    if launches["fused_place"] <= 0 or launches["allocs_fit_verify"] <= 0:
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    if launches["plain"] or launches["place_batch"]:
+        raise AssertionError(f"{label}: a plain version or the staged "
+                             f"kernel ran: {launches}")
+
+
+class Submitter:
+    """Submits jobs from REPL_THREADS threads to whichever server leads,
+    following the leader across a failover; ``acked`` maps job index ->
+    eval id of the submit that was acknowledged."""
+
+    def __init__(self, jobs, submit, find_leader):
+        import threading
+
+        self.jobs = jobs
+        self.submit = submit  # (leader, job index) -> eval id, or raises
+        self.find_leader = find_leader  # () -> leader or None
+        self.acked: dict = {}
+        self.retries: dict = {}
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self._next = 0
+        self._threads = [threading.Thread(target=self._run, daemon=True)
+                         for _ in range(REPL_THREADS)]
+
+    def start(self) -> None:
+        for t in self._threads:
+            t.start()
+
+    def join(self) -> None:
+        for t in self._threads:
+            t.join(timeout=REPL_WAIT_S)
+        if any(t.is_alive() for t in self._threads) or len(self.acked) != len(
+                self.jobs):
+            missing = sorted(set(range(len(self.jobs))) - set(self.acked))
+            raise AssertionError(
+                f"replicated: {len(self.acked)} of {len(self.jobs)} submits "
+                f"acknowledged (missing {missing}; threads alive "
+                f"{sum(t.is_alive() for t in self._threads)}; retries "
+                f"{self.retries}; last errors {self.errors[-3:]})")
+
+    def _run(self) -> None:
+        deadline = time.perf_counter() + REPL_WAIT_S
+        while True:
+            with self._lock:
+                i = self._next
+                self._next += 1
+            if i >= len(self.jobs):
+                return
+            while time.perf_counter() < deadline:
+                try:
+                    leader = self.find_leader()
+                    if leader is None:
+                        time.sleep(0.01)
+                        continue
+                    eval_id = self.submit(leader, i)
+                except Exception as exc:  # noqa: BLE001 — retried on the next leader
+                    with self._lock:
+                        kind = type(exc).__name__
+                        self.retries[kind] = self.retries.get(kind, 0) + 1
+                        self.errors.append(f"job {i}: {exc!r}"[:300])
+                    time.sleep(0.01)
+                    continue
+                with self._lock:
+                    self.acked[i] = eval_id
+                break
+
+
+def repl_in_process(card: str, out: dict) -> None:
+    """13a: three in-process server agents at full width; the cluster
+    grows from one, the joiners catch up by snapshot, and the leader is
+    shut down mid-burst."""
+    import threading
+    from types import SimpleNamespace
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    tmp = tempfile.mkdtemp(prefix="nomad-repl-")
+    ports = free_ports(REPL_SERVERS)
+    addrs = [f"http://127.0.0.1:{p}" for p in ports]
+    agents: list = []
+    try:
+        t0 = time.perf_counter()
+        first = repl_agent(0, ports[0], [], raft=True)
+        agents.append(first)
+        first.start()
+        wait_for(lambda: first.server.replicator.is_leader,
+                 "the lone server to lead", timeout_s=REPL_WAIT_S)
+        usage = seeded_usage(N_NODES)
+        for i in range(N_NODES):
+            first.server.register_node(reserved_node(i, usage[i]))
+        out["register_s"] = time.perf_counter() - t0
+        installs: list = []
+        for i in (1, 2):
+            joined = cli_ok(tmp, "--address", addrs[0], "server", "join",
+                            addrs[i])
+            if addrs[i] not in joined:
+                raise AssertionError(f"replicated: `server join` said {joined}")
+            t0 = time.perf_counter()
+            a = repl_agent(i, ports[i], [addrs[0]], raft=True)
+            timed_install(a.server, installs)
+            agents.append(a)
+            a.start()
+            leader_rep = first.server.replicator
+            repl_wait(agents, lambda a=a: (
+                a.server.replicator.snapshots_installed >= 1
+                and len(a.server.store.nodes) == N_NODES
+                and a.server.replicator.leader_addr == addrs[0]
+                and leader_rep.peers[addrs[i]].healthy
+                and not leader_rep._installing(addrs[i])),
+                f"server-{i} caught up")
+            out[f"catch_up_{i}_s"] = time.perf_counter() - t0
+        repl_wait(agents, lambda: all(len(a.server.replicator.peers) == 2
+                                      for a in agents),
+                  "three members on every server")
+        if first.server.coalescer.dispatches or any(
+                a.server.coalescer.dispatches for a in agents[1:]):
+            raise AssertionError("replicated: a server dispatched before any "
+                                 "job was submitted")
+        out["install_s"] = installs
+        members = http_json(addrs[0], "GET", "/v1/agent/members")[1]
+        log(f"replicated: 13a grew one server to three (`server join`): "
+            f"{N_NODES} nodes with the server phases' usage as reservations "
+            f"registered on the lone leader in {out['register_s']:.3f} s; "
+            f"each joiner caught up by snapshot install "
+            f"({', '.join(f'{s:.3f}' for s in installs)} s) in "
+            f"{out['catch_up_1_s']:.3f} / {out['catch_up_2_s']:.3f} s; "
+            f"members {sorted(m['Addr'] for m in members['Members'])} "
+            f"(card: {card})")
+
+        # The burst: the leader goes down in its middle.
+        syncs = {id(a): {} for a in agents[1:]}
+        writes = {id(a): {} for a in agents[1:]}
+        for a in agents[1:]:
+            timed_first_sync(a.server.matrix, syncs[id(a)])
+            timed_replicate(a.server.replicator, writes[id(a)])
+        live = list(agents)
+        jobs = [service_job(i) for i in range(SERVER_JOBS)]
+
+        def submit(leader, i):
+            return leader.server.submit_job(jobs[i]).id
+
+        sub = Submitter(jobs, submit, lambda: leader_agent(live))
+        t_start = time.perf_counter()
+        sub.start()
+        wait_for(lambda: len(sub.acked) >= REPL_KILL_AT,
+                 "half the burst acknowledged", timeout_s=REPL_WAIT_S)
+        old = leader_agent(live)
+        t_kill = time.perf_counter()
+        live.remove(old)
+        marks: dict = {}
+
+        def watch():
+            while time.perf_counter() - t_kill < REPL_WAIT_S:
+                new = leader_agent(live)
+                if new is not None:
+                    marks.setdefault("elected", time.perf_counter())
+                    if new.server.plan_applier.plans_applied:
+                        marks["placed"] = time.perf_counter()
+                        return
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        old.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t_kill
+        # From here on only a survivor can launch: the counts are read
+        # after jobs that go in later, and each server's dispatches are
+        # checked.
+        k.reset_counts()
+        dispatched = {id(a): a.server.coalescer.dispatches for a in agents}
+        fused0 = {id(a): a.server.coalescer.fused_dispatches for a in live}
+        sub.join()
+        watcher.join(timeout=REPL_WAIT_S)
+        new = leader_agent(live)
+        if new is None or "placed" not in marks:
+            raise AssertionError(f"replicated: no survivor placed after the "
+                                 f"leader went down ({repl_state(live)})")
+        out["election_s"] = marks["elected"] - t_kill
+        out["first_placement_s"] = marks["placed"] - t_kill
+        srv = new.server
+        evals = [SimpleNamespace(id=e) for e in sub.acked.values()]
+        wait_for(lambda: all(
+            (ev := last_eval(srv, e.id)) is not None
+            and ev.status == "complete" for e in evals),
+            "every acknowledged eval complete", timeout_s=REPL_WAIT_S)
+        out["burst_s"] = time.perf_counter() - t_start
+        out["evals_per_s"] = SERVER_JOBS / out["burst_s"]
+        after_jobs = [service_job(SERVER_JOBS + i)
+                      for i in range(REPL_AFTER_JOBS)]
+        after = Submitter(after_jobs, lambda leader, i: leader.server.submit_job(
+            after_jobs[i]).id, lambda: leader_agent(live))
+        after.start()
+        after.join()
+        evals += [SimpleNamespace(id=e) for e in after.acked.values()]
+        jobs = jobs + after_jobs
+        wait_for(lambda: all(
+            (ev := last_eval(srv, e.id)) is not None
+            and ev.status == "complete" for e in evals),
+            "every eval after the shutdown complete", timeout_s=REPL_WAIT_S)
+        wait_quiet(srv, "replicated")
+        launches = path_launches(k)
+        check_failover_launches(launches, "replicated (13a)")
+        other = next(a for a in live if a is not new)
+        for a in (old, other):
+            if a.server.coalescer.dispatches != dispatched[id(a)]:
+                raise AssertionError(
+                    f"replicated: {a.config.name} dispatched after the old "
+                    f"leader's shutdown returned "
+                    f"({dispatched[id(a)]} -> {a.server.coalescer.dispatches})")
+        if srv.coalescer.fused_dispatches <= fused0[id(new)]:
+            raise AssertionError("replicated: the new leader's coalescer ran "
+                                 "no fused dispatch after the old leader's "
+                                 "shutdown returned")
+        if srv.replicator.snapshots_installed < 1:
+            raise AssertionError("replicated: the new leader did not catch "
+                                 "up by snapshot")
+        first_sync = syncs[id(new)]
+        if not first_sync.get("full"):
+            raise AssertionError(f"replicated: the new leader's first sync "
+                                 f"was not a full upload: {first_sync}")
+        for a in live:
+            for i, job in enumerate(jobs):
+                if a.server.store.job_by_id(job.namespace, job.id) is None:
+                    raise AssertionError(f"replicated: acknowledged job {i} "
+                                         f"missing on {a.config.name}")
+        wait_for(lambda: all(other.server.store.eval_by_id(e.id) is not None
+                             for e in evals)
+                 and other.server.store.latest_index == srv.store.latest_index,
+                 "the follower caught up with the burst",
+                 timeout_s=REPL_WAIT_S)
+        wait_for(lambda: other.server.store.to_snapshot_wire()
+                 == srv.store.to_snapshot_wire(),
+                 "equal images on the survivors", timeout_s=REPL_WAIT_S)
+        burst = check_burst(srv, evals, "replicated (13a)",
+                            n_jobs=SERVER_JOBS + REPL_AFTER_JOBS)
+        rows = device_matches_scratch(srv, "replicated (13a)")
+        out["first_sync_ms"] = first_sync["ms"]
+        out["first_sync_bytes"] = first_sync["bytes"]
+        w = writes[id(new)]
+        out["write_quorum_ms"] = w["s"] / w["n"] * 1e3
+        out["writes"] = w["n"]
+        out["retries"] = dict(sub.retries)
+        out["launches"] = launches
+        log(f"replicated: 13a {SERVER_JOBS} count-{SERVER_COUNT} jobs from "
+            f"{REPL_THREADS} threads, the leader ({old.config.name}) shut down "
+            f"after {REPL_KILL_AT} acknowledged submits (shutdown "
+            f"{out['shutdown_s']:.3f} s); {new.config.name}, caught up by "
+            f"snapshot, elected {out['election_s']:.3f} s after and placing "
+            f"{out['first_placement_s']:.3f} s after; its first sync a full "
+            f"upload of {first_sync['bytes']} bytes in "
+            f"{first_sync['ms']:.3f} ms; every acknowledged submit on both "
+            f"survivors, every eval complete, equal images, "
+            f"{burst['allocs']} fitting allocs ({burst['retried']} retried), "
+            f"device matrix equal to a from-scratch one on {rows} rows; "
+            f"burst {out['evals_per_s']:.1f} evals/s, each of the new "
+            f"leader's {out['writes']} writes waiting "
+            f"{out['write_quorum_ms']:.3f} ms on average for its quorum under "
+            f"the store's write lock; submits retried "
+            f"{out['retries']}; {REPL_AFTER_JOBS} jobs more on the new "
+            f"leader; launches since the old leader's shutdown returned, "
+            f"all the new leader's: {launches} "
+            f"(card: {card})")
+    finally:
+        for a in agents:
+            try:
+                a.shutdown()
+            except Exception as exc:  # noqa: BLE001 — stopped already
+                log(f"replicated: shutdown of {a.config.name}: {exc!r}")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def repl_cold_build(tmp: str, out: dict) -> None:
+    """Three processes build one kernel into one empty directory at once
+    (temporary file, then ``os.replace``); each must load a whole
+    library."""
+    build_dir = Path(tmp) / "cold-build"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", REPL_COLD_BUILD,
+                               str(build_dir)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env=smoke_env()) for _ in range(3)]
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=REPL_WAIT_S)
+        if p.returncode != 0 or not stdout.startswith("loaded"):
+            raise AssertionError(f"replicated: a cold build failed: "
+                                 f"{stdout}{stderr[-2000:]}")
+    out["cold_build_s"] = time.perf_counter() - t0
+
+
+def raft_stats(addr: str):
+    """``/v1/internal/raft/stats`` with the cluster secret, or None."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        addr + "/v1/internal/raft/stats", data=b"{}", method="POST",
+        headers={"X-Nomad-Cluster-Secret": REPL_SECRET})
+    try:
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            return json.loads(resp.read())
+    except (urllib.error.URLError, OSError, ValueError):
+        return None
+
+
+def fused_launches(addr: str) -> int:
+    """The fused launches ``addr``'s ``/v1/metrics`` counts."""
+    return http_json(addr, "GET", "/v1/metrics")[1].get(
+        "nomad.kernel.launches{path=fused}", 0)
+
+
+def proc_leader(addrs):
+    for addr in addrs:
+        st = raft_stats(addr)
+        if st is not None and st["Role"] == "leader":
+            return addr
+    return None
+
+
+def repl_processes(card: str, out: dict) -> None:
+    """13b: three ``agent --server-only --device cuda`` processes, each
+    with its own CUDA context; the leader's process is SIGKILLed
+    mid-burst."""
+    import re
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.api.rpc import FailoverRPC
+    from nomad_tpu_torch.jobspec import job_to_api
+
+    tmp = tempfile.mkdtemp(prefix="nomad-repl-proc-")
+    procs: dict = {}
+    try:
+        repl_cold_build(tmp, out)
+        ports = free_ports(REPL_SERVERS)
+        addrs = [f"http://127.0.0.1:{p}" for p in ports]
+        peers = ", ".join(f'"{a}"' for a in addrs)
+        t0 = time.perf_counter()
+        for i in range(REPL_SERVERS):
+            conf = Path(tmp) / f"server-{i}.hcl"
+            conf.write_text(REPL_SERVER_HCL.format(
+                workers=REPL_PROC_WORKERS, capacity=REPL_PROC_CAPACITY,
+                server_id=f"server-{i}", peers=peers, secret=REPL_SECRET))
+            procs[addrs[i]] = spawn_cli_agent(tmp, f"server-{i}", [
+                "--server-only", "--device", FRONT_DEVICE, "--port",
+                str(ports[i]), "--config", str(conf)], smoke_env())
+        for i, addr in enumerate(addrs):
+            if cli_agent_addr(tmp, f"server-{i}", procs[addr]) != addr:
+                raise AssertionError("replicated: an agent took another port")
+        wait_for(lambda: proc_leader(addrs) is not None, "a leader elected",
+                 timeout_s=REPL_WAIT_S)
+        out["proc_start_s"] = time.perf_counter() - t0
+        pids = [p.pid for p in procs.values()]
+        holders = cuda_holders(pids)
+        if not all(holders[pid] for pid in pids):
+            raise AssertionError(f"replicated: not every server process holds "
+                                 f"a CUDA context: {holders}")
+
+        rpc = FailoverRPC(addrs)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(REPL_THREADS) as pool:
+            list(pool.map(lambda i: rpc.register_node(server_node(i)),
+                          range(REPL_PROC_NODES)))
+        out["proc_register_s"] = time.perf_counter() - t0
+
+        payloads = []
+        for i in range(SERVER_JOBS):
+            job = service_job(i)
+            job.id = job.name = f"repl-proc-{i}"
+            payloads.append(job_to_api(job))
+        live = list(addrs)
+
+        def submit(leader, i):
+            code, body = http_json(leader, "PUT", "/v1/jobs",
+                                   {"Job": payloads[i]})
+            if code != 200:
+                raise RuntimeError(f"{code}: {body}")
+            return body["EvalID"]
+
+        sub = Submitter(payloads, submit, lambda: proc_leader(live))
+        t_start = time.perf_counter()
+        sub.start()
+        wait_for(lambda: len(sub.acked) >= REPL_KILL_AT,
+                 "half the burst acknowledged", timeout_s=REPL_WAIT_S)
+        old = proc_leader(live)
+        t_kill = time.perf_counter()
+        procs[old].send_signal(signal.SIGKILL)
+        live.remove(old)
+        procs[old].wait(timeout=30)
+        fused_at_kill = {a: fused_launches(a) for a in live}
+        wait_for(lambda: proc_leader(live) is not None,
+                 "the survivors elect a leader", timeout_s=REPL_WAIT_S)
+        out["proc_election_s"] = time.perf_counter() - t_kill
+        sub.join()
+        new = proc_leader(live)
+
+        def open_evals():
+            table = {e["id"]: e for e in http_json(
+                new, "GET", "/v1/evaluations")[1]}
+            return [e for e in sub.acked.values() if e not in table
+                    or last_eval_of(table, e)["status"] != "complete"]
+
+        wait_for(lambda: not open_evals(),
+                 "every acknowledged eval complete on the new leader",
+                 timeout_s=REPL_WAIT_S)
+        out["proc_burst_s"] = time.perf_counter() - t_start
+        out["proc_evals_per_s"] = SERVER_JOBS / out["proc_burst_s"]
+        fused = {a: fused_launches(a) - fused_at_kill[a] for a in live}
+        if not sum(fused.values()):
+            raise AssertionError(f"replicated: the survivors' metrics count "
+                                 f"no fused launch after the kill: {fused}")
+        allocs = [a for a in http_json(new, "GET", "/v1/allocations")[1]
+                  if a["job_id"].startswith("repl-proc-")
+                  and a["desired_status"] == "run"]
+        if len(allocs) != SERVER_JOBS * SERVER_COUNT:
+            raise AssertionError(f"replicated: {len(allocs)} allocs of the "
+                                 "burst after the kill")
+        members = cli_ok(tmp, "--address", new, "server", "members")
+        # A write goes to whichever survivor leads now (a follower answers
+        # 409 with the leader's address, which the CLI does not follow).
+        deadline = time.perf_counter() + REPL_WAIT_S
+        while True:
+            leader = proc_leader(live)
+            done = leader is not None and run_cli(
+                tmp, "--address", leader, "server", "remove-peer", old)
+            if done and done.returncode == 0:
+                removed = done.stdout
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"replicated: `server remove-peer` "
+                                     f"failed: {done and done.stderr}")
+            time.sleep(0.1)
+        terms = {a: (raft_stats(a) or {}).get("Term") for a in live}
+        if old in removed or leader not in removed:
+            raise AssertionError(f"replicated: `server remove-peer` said "
+                                 f"{removed}")
+        wait_for(lambda: all(old not in (raft_stats(a) or {"Peers": {old: 0}})
+                             ["Peers"] for a in live),
+                 "the dead peer gone from every survivor",
+                 timeout_s=REPL_WAIT_S)
+        t0 = time.perf_counter()
+        for addr in live:
+            procs[addr].send_signal(signal.SIGINT)
+        for i, addr in enumerate(addrs):
+            if addr in live:
+                stop_cli_agent(procs[addr], f"server-{i}", signalled=True)
+        out["proc_stop_s"] = time.perf_counter() - t0
+        log(f"replicated: 13b three `agent --server-only --device "
+            f"{FRONT_DEVICE}` processes (three cold builds of one kernel into "
+            f"one directory at once, each loaded, in "
+            f"{out['cold_build_s']:.3f} s) up and a leader elected in "
+            f"{out['proc_start_s']:.3f} s, each holding a CUDA context "
+            f"({holders['method']}); {REPL_PROC_NODES} nodes through "
+            f"FailoverRPC in {out['proc_register_s']:.3f} s; {SERVER_JOBS} "
+            f"jobs over HTTP from {REPL_THREADS} threads, the leader's "
+            f"process SIGKILLed after {REPL_KILL_AT} acknowledged; the "
+            f"survivors elected {new} {out['proc_election_s']:.3f} s after; "
+            f"every acknowledged eval complete there, burst "
+            f"{out['proc_evals_per_s']:.1f} evals/s, the survivors' "
+            f"/v1/metrics counting {fused} fused launches after the kill "
+            f"(terms now "
+            f"{terms}); submits retried "
+            f"{dict(sub.retries)}; `server members` listed "
+            f"{len(set(re.findall(r'http://[0-9.:]+', members)))} addresses, "
+            f"`server remove-peer` "
+            f"took the dead one out; SIGINT stopped the survivors, rc 0, in "
+            f"{out['proc_stop_s']:.3f} s (card: {card})")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def repl_full_width(card: str = "") -> dict:
+    """Not a phase of the smoke (13a widens the raft timers, 13b cuts the
+    nodes): three ``agent --server-only --device cuda`` processes with the
+    reference's timers (elections 0.25-0.5 s), grown from one by ``server
+    join`` at the server phases' 10,000 nodes, registered over HTTP
+    through ``FailoverRPC``; each joiner catches up by snapshot.  Logs
+    each catch-up's seconds and the terms when the joiner answers and
+    when it has caught up (an election during the catch-up shows as a
+    higher term; from the join until the joiner answers, the lone leader
+    has no quorum and campaigns), then SIGKILLs the leader, times the election
+    and places REPL_AFTER_JOBS jobs on the new leader, whose
+    ``/v1/metrics`` must count fused launches.  Returns the readings."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.api.rpc import FailoverRPC
+    from nomad_tpu_torch.jobspec import job_to_api
+
+    card = card or card_line()
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="nomad-repl-full-")
+    procs: dict = {}
+    try:
+        # Each port is taken just before its server needs it: the 10,000
+        # registrations' connections take local ports of their own.
+        ports, addrs = [], []
+
+        def take_port():
+            ports.append(free_ports(1)[0])
+            addrs.append(f"http://127.0.0.1:{ports[-1]}")
+
+        def spawn(i, peers):
+            conf = Path(tmp) / f"server-{i}.hcl"
+            hcl = REPL_SERVER_HCL.format(
+                workers=REPL_PROC_WORKERS, capacity=CAPACITY,
+                server_id=f"server-{i}",
+                peers=", ".join(f'"{a}"' for a in peers), secret=REPL_SECRET)
+            conf.write_text(hcl.replace("server {", "server {\n  "
+                                        "raft_enabled = true", 1))
+            procs[addrs[i]] = spawn_cli_agent(tmp, f"server-{i}", [
+                "--server-only", "--device", FRONT_DEVICE, "--port",
+                str(ports[i]), "--config", str(conf)], smoke_env())
+            if cli_agent_addr(tmp, f"server-{i}", procs[addrs[i]]) != addrs[i]:
+                raise AssertionError("full width: an agent took another port")
+
+        take_port()
+        spawn(0, [])
+        wait_for(lambda: proc_leader(addrs[:1]) is not None,
+                 "the lone server to lead", timeout_s=REPL_WAIT_S)
+        usage = seeded_usage(N_NODES)
+        rpc = FailoverRPC(addrs[:1])
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(REPL_THREADS) as pool:
+            list(pool.map(lambda i: rpc.register_node(
+                reserved_node(i, usage[i])), range(N_NODES)))
+        out["register_s"] = time.perf_counter() - t0
+        out["terms"] = []
+
+        def term(n):
+            return max((raft_stats(a) or {}).get("Term", 0)
+                       for a in addrs[:n])
+
+        for i in (1, 2):
+            leader = proc_leader(addrs[:i])
+            take_port()
+            cli_ok(tmp, "--address", leader, "server", "join", addrs[i])
+            t0 = time.perf_counter()
+            spawn(i, [addrs[0]])
+            up = term(i + 1)
+
+            def caught_up(i=i):
+                lead = proc_leader(addrs[:i + 1])
+                st, ls = raft_stats(addrs[i]), lead and raft_stats(lead)
+                return (st is not None and ls is not None
+                        and st["Role"] == "follower"
+                        and st["LastSeq"] >= ls["LastSeq"] > 0
+                        and ls["Peers"].get(addrs[i], {}).get("Healthy"))
+
+            wait_for(caught_up, f"server-{i} caught up",
+                     timeout_s=REPL_WAIT_S)
+            out[f"catch_up_{i}_s"] = time.perf_counter() - t0
+            out["terms"].append((up, term(i + 1)))
+        live = list(addrs)
+        old = proc_leader(live)
+        t_kill = time.perf_counter()
+        procs[old].send_signal(signal.SIGKILL)
+        procs[old].wait(timeout=30)
+        live.remove(old)
+        wait_for(lambda: proc_leader(live) is not None,
+                 "the survivors elect a leader", timeout_s=REPL_WAIT_S)
+        out["election_s"] = time.perf_counter() - t_kill
+        new = proc_leader(live)
+        fused0 = fused_launches(new)
+        payloads = []
+        for i in range(REPL_AFTER_JOBS):
+            job = service_job(i)
+            job.id = job.name = f"repl-full-{i}"
+            payloads.append(job_to_api(job))
+
+        def submit(leader, i):
+            code, body = http_json(leader, "PUT", "/v1/jobs",
+                                   {"Job": payloads[i]})
+            if code != 200:
+                raise RuntimeError(f"{code}: {body}")
+            return body["EvalID"]
+
+        sub = Submitter(payloads, submit, lambda: proc_leader(live))
+        t0 = time.perf_counter()
+        sub.start()
+        sub.join()
+        new = proc_leader(live)
+
+        def open_evals():
+            table = {e["id"]: e for e in http_json(
+                new, "GET", "/v1/evaluations")[1]}
+            return [e for e in sub.acked.values() if e not in table
+                    or last_eval_of(table, e)["status"] != "complete"]
+
+        wait_for(lambda: not open_evals(), "the jobs placed",
+                 timeout_s=REPL_WAIT_S)
+        out["place_s"] = time.perf_counter() - t0
+        out["fused"] = fused_launches(new) - fused0
+        if out["fused"] <= 0:
+            raise AssertionError("full width: the new leader counts no fused "
+                                 "launch")
+        for addr in live:
+            procs[addr].send_signal(signal.SIGINT)
+        for i, addr in enumerate(addrs):
+            if addr in live:
+                stop_cli_agent(procs[addr], f"server-{i}", signalled=True)
+        log(f"replicated, full width: three `agent --server-only` processes "
+            f"with elections of 0.25-0.5 s; {N_NODES} nodes through "
+            f"FailoverRPC in {out['register_s']:.3f} s; catch-ups by "
+            f"snapshot {out['catch_up_1_s']:.3f} / {out['catch_up_2_s']:.3f} "
+            f"s; terms (joiner up, caught up) {out['terms']}; SIGKILL -> "
+            f"election {out['election_s']:.3f} s; {REPL_AFTER_JOBS} jobs "
+            f"placed on the new leader in {out['place_s']:.3f} s with "
+            f"{out['fused']} fused launches (card: {card})")
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_replicated(card: str, results: dict) -> None:
+    """Replication and membership in front of the card's kernels (module
+    docstring, phase 13)."""
+    out = results.setdefault("replicated", {})
+    t0 = time.perf_counter()
+    repl_in_process(card, out)
+    repl_processes(card, out)
+    out["phase_s"] = time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: the node-sharded dispatch (K9)
 # ---------------------------------------------------------------------------
 
@@ -5824,6 +6707,32 @@ def kernel_ab() -> None:
     out["sharded_usage_b4096"] = usage_at_bench_batch(card)
     out["sharded_usage_spread"] = usage_on_spread_picks(card)
     print("ab: " + json.dumps(out), flush=True)
+
+
+def burst_ab(rounds: int = 3) -> None:
+    """The server phase's service burst in whichever ``nomad_tpu_torch``
+    this process imports, as one JSON line: a one-card server over the
+    server phases' 10,000 nodes (usage pre-loaded) takes ``rounds`` bursts
+    of 64 count-2 jobs; evals/s of each.  Called as ``kernel_ab()`` is,
+    from each tree's root, so host-bound paths are compared in one call."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.server.server import Server
+
+    card = card_line()
+    tree = str(Path(k.__file__).resolve().parents[2])
+    srv = Server(server_config(), device="cuda")
+    srv.start()
+    try:
+        register_cluster(srv, "burst ab")
+        rates = []
+        for r in range(rounds):
+            jobs = [service_job(i) for i in range(SERVER_JOBS)]
+            _, secs = burst(srv, jobs)
+            rates.append(SERVER_JOBS / secs)
+    finally:
+        srv.shutdown()
+    print("ab: " + json.dumps({"tree": tree, "card": card,
+                               "burst_evals_per_s": rates}), flush=True)
 
 
 def phase_sharded(card: str, results: dict) -> None:
@@ -6210,6 +7119,7 @@ def run_phases() -> int:
     timed("guarded", phase_guarded, card, results)
     timed("agents", phase_agents, card, results)
     timed("front door", phase_front_door, card, results)
+    timed("replicated", phase_replicated, card, results)
     timed("sharded", phase_sharded, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
@@ -6241,6 +7151,19 @@ def run_phases() -> int:
         f"migration {front['migration_s']:.3f} s, drain "
         f"{front['drain_s']:.3f} s; phase {front['phase_s']:.1f} s "
         f"(card: {card})")
+    repl = results["replicated"]
+    log(f"replicated: snapshot installs "
+        f"{', '.join(f'{s:.3f}' for s in repl['install_s'])} s; the new "
+        f"leader's first sync {repl['first_sync_ms']:.3f} ms "
+        f"({repl['first_sync_bytes']} bytes); shutdown -> election "
+        f"{repl['election_s']:.3f} s, -> first placement "
+        f"{repl['first_placement_s']:.3f} s; burst {repl['evals_per_s']:.1f} "
+        f"evals/s across the failover, a write's quorum "
+        f"{repl['write_quorum_ms']:.3f} ms (fused server phase "
+        f"{fused['evals_per_s']:.1f}, HTTP {front['evals_per_s']:.1f}); "
+        f"processes: SIGKILL -> election {repl['proc_election_s']:.3f} s, "
+        f"burst {repl['proc_evals_per_s']:.1f} evals/s; phase "
+        f"{repl['phase_s']:.1f} s (card: {card})")
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",

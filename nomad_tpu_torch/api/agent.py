@@ -5,9 +5,10 @@ client.NewClient in-process) + ``command/agent/http.go`` (HTTPServer).
 
 A copy of the reference package's ``api/agent.py``.  ``Agent`` takes the
 device of its server (default ``"cuda"``, raising without a card); a
-client-only agent builds no ``Server`` and touches no device.  This package
-has no replication yet (ROADMAP queue 1 item 6): an agent configured with
-``peers`` or ``raft_enabled`` raises instead of starting a lone server.
+client-only agent builds no ``Server`` and touches no device.  A server
+agent configured with ``peers`` or ``raft_enabled`` joins a replicated
+cluster as a follower (``Server.setup_replication``); each such agent's
+server holds its own device and launches kernels only while it leads.
 """
 
 from __future__ import annotations
@@ -48,13 +49,7 @@ class Agent:
         self.server: Optional[Server] = None
         self.client: Optional[Client] = None
         if self.config.server_enabled:
-            sc = self.config.server_config
-            if sc.peers or sc.raft_enabled:
-                raise ValueError(
-                    "replication (server peers, raft_enabled) is not in "
-                    "this package yet: ROADMAP queue 1 item 6"
-                )
-            self.server = Server(sc, device=device)
+            self.server = Server(self.config.server_config, device=device)
         if self.config.client_enabled:
             if self.server is not None:
                 server_handle = self.server
@@ -86,11 +81,27 @@ class Agent:
             self, host=self.config.http_host, port=self.config.http_port
         )
         self.rpc_addr = self.http.addr
+        if self.server is not None and (
+            self.config.server_config.peers
+            or self.config.server_config.raft_enabled
+        ):
+            # Multi-server: join the peer set as a follower; the election
+            # promotes one leader (server/replication.py).  raft_enabled
+            # covers the single-server-that-grows case (`server join`).
+            self.server.setup_replication(self.rpc_addr)
 
     def start(self) -> None:
         self.started_at = time.time()
         if self.server is not None:
             self.server.start()
+            rep = self.server.replicator
+            if rep is not None and self.client is not None:
+                # The in-process client registers through direct server
+                # calls (no leader-redirect retry on that seam): wait out
+                # the first election so its boot writes don't race it.
+                deadline = time.time() + 10.0
+                while time.time() < deadline and not rep.leader_addr:
+                    time.sleep(0.05)
         if self.client is not None:
             # Advertise this agent's HTTP address on the node so servers
             # can forward task-fs/log requests to it (the reference

@@ -85,20 +85,16 @@ def apply_config(doc: Dict, agent_config) -> None:
         sc.num_workers = int(srv.get("workers", sc.num_workers))
         sc.node_capacity = int(srv.get("node_capacity", sc.node_capacity))
         sc.acl_enabled = bool(srv.get("acl_enabled", sc.acl_enabled))
-        # Replication's identity and peer secret have nothing to act on
-        # in this package: refused, never ignored.  peers and
-        # raft_enabled are read, and Agent refuses them.
-        unsupported = [k for k in ("server_id", "cluster_secret")
-                       if k in srv]
-        if unsupported:
-            raise ValueError(
-                f"replication ({', '.join(unsupported)}) is not in this "
-                "package yet: ROADMAP queue 1 item 6"
-            )
+        # No name fallback here: CLI flags apply AFTER this, and a shared
+        # config file must not stamp every server with the same
+        # replication identity (Server falls back to its unique address).
+        sc.server_id = srv.get("server_id", sc.server_id)
         peers = srv.get("peers")
         if peers:
             sc.peers = list(peers)
         sc.raft_enabled = bool(srv.get("raft_enabled", sc.raft_enabled))
+        if srv.get("cluster_secret"):
+            sc.cluster_secret = str(srv["cluster_secret"])
         if srv.get("heartbeat_min_ttl"):
             sc.heartbeat_min_ttl = float(srv["heartbeat_min_ttl"])
         if srv.get("heartbeat_max_ttl"):

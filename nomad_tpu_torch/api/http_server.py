@@ -5,11 +5,12 @@ HTTP; the CLI and external tooling consume this, mirroring the reference's
 api/ package contract.
 
 A copy of the reference package's ``api/http_server.py``: the same routes,
-JSON shapes and status codes.  This package has no replication yet, so the
-error path has no not-leader branch (409) and the raft routes answer 501;
-a caller that hung up mid-request gets no 500 written after it.  Handlers
-parked in a stream (event stream, monitor, log follow) end when the API
-shuts down; the server's shutdown wakes parked blocking queries.
+JSON shapes and status codes, the raft RPCs of a replicated server (501 on
+a server without a replicator) and the not-leader answer (409 with the
+leader's address); a caller that hung up mid-request gets no 500 written
+after it.  Handlers parked in a stream (event stream, monitor, log
+follow) end when the API shuts down; the server's shutdown wakes parked
+blocking queries.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from urllib.parse import parse_qs, urlparse
 
 from ..jobspec import api_to_job, parse_job
 from ..server.admission import RateLimitError
+from ..server.replication import NotLeaderError
 from ..structs.types import DrainStrategy, SchedulerConfiguration
 
 
@@ -162,7 +164,10 @@ class HTTPAPIServer:
                         "X-Nomad-Token", query.get("token", "")
                     )
                     result = api.route(
-                        method, parsed.path, query, body, token=token
+                        method, parsed.path, query, body, token=token,
+                        cluster_secret=self.headers.get(
+                            "X-Nomad-Cluster-Secret", ""
+                        ),
                     )
                     if isinstance(result, RawResponse):
                         api._raw_respond(
@@ -180,7 +185,11 @@ class HTTPAPIServer:
                     # there is no one to send a 500 to.
                     pass
                 except Exception as exc:  # noqa: BLE001
-                    if isinstance(exc, RateLimitError):
+                    if isinstance(exc, NotLeaderError):
+                        self._respond(409, {
+                            "error": f"not leader; leader={exc.leader_addr}"
+                        })
+                    elif isinstance(exc, RateLimitError):
                         # Load-shed submission: 429 + the bucket's actual
                         # deficit as the Retry-After hint (admission.py).
                         self._respond(
@@ -893,7 +902,7 @@ class HTTPAPIServer:
 
     def route(
         self, method: str, path: str, query: Dict, body: Any,
-        token: str = "",
+        token: str = "", cluster_secret: str = "",
     ) -> Any:
         server = self.agent.server
         # Alloc lifecycle ops (`alloc restart` / `alloc signal`;
@@ -951,11 +960,38 @@ class HTTPAPIServer:
             raise HTTPError(501, "agent is not running a server")
         store = server.store
 
-        # ---- consensus stream (server↔server): this package runs no
-        # replication yet (ROADMAP queue 1 item 6), so every raft RPC gets
-        # the reference's answer for a server without a replicator ----
+        # ---- consensus stream (server↔server; replication.py) ----
         if path.startswith("/v1/internal/raft/"):
-            raise HTTPError(501, "server is not running replication")
+            rep = store.replicator
+            if rep is None:
+                raise HTTPError(501, "server is not running replication")
+            # Peer authentication: an unauthenticated snapshot-install
+            # would let any caller replace the whole cluster state.  A
+            # configured cluster_secret must match; with ACLs on and no
+            # secret, a management token is accepted instead.
+            want = server.config.cluster_secret
+            if want:
+                import hmac
+
+                if not hmac.compare_digest(cluster_secret, want):
+                    raise HTTPError(403, "bad or missing cluster secret")
+            elif server.config.acl_enabled:
+                acl = server.resolve_token(token)
+                if acl is None or not acl.management:
+                    raise HTTPError(
+                        403,
+                        "raft RPCs require a cluster_secret or a "
+                        "management token",
+                    )
+            if path == "/v1/internal/raft/append":
+                return rep.handle_append(body or {})
+            if path == "/v1/internal/raft/vote":
+                return rep.handle_vote(body or {})
+            if path == "/v1/internal/raft/snapshot":
+                return rep.handle_snapshot_install(body or {})
+            if path == "/v1/internal/raft/stats":
+                return rep.stats()
+            raise HTTPError(404, f"unknown raft RPC {path}")
 
         # ---- leader gate: writes (and node RPCs) only serve on the leader
         # (the reference forwards to the leader, nomad/rpc.go forward; we

@@ -44,12 +44,7 @@ def cmd_agent(args) -> int:
     # None so "explicitly passed" is distinguishable from "defaulted".
     config = AgentConfig(http_port=4646)
     if args.config:
-        try:
-            apply_config(load_config_files(args.config), config)
-        except ValueError as exc:
-            # A replication setting this package refuses.
-            print(f"error: {exc}", file=sys.stderr)
-            return 1
+        apply_config(load_config_files(args.config), config)
     if args.name is not None:
         config.name = args.name
     if args.dc is not None:
@@ -77,7 +72,7 @@ def cmd_agent(args) -> int:
     try:
         agent = Agent(config, device=args.device)
     except (RuntimeError, ValueError) as exc:
-        # No card for --device cuda, or a replication config.
+        # No card for --device cuda, or a client-only agent without servers.
         print(f"error: {exc}", file=sys.stderr)
         return 1
     agent.start()

@@ -24,8 +24,13 @@ ACL tokens resolve to compiled policies (``acl/``) through
 The node agents (``client/``) reach the server through the client-facing
 RPCs: ``register_node``, ``heartbeat_node``, ``update_node_status``, the
 blocking ``get_client_allocs``, ``update_allocs_from_client``,
-``get_alloc_fs_origin`` and ``get_volume_source``.  Replication and
-membership and the HTTP API are not part of this package yet.
+``get_alloc_fs_origin`` and ``get_volume_source``.  With
+:meth:`Server.setup_replication` (the agent calls it when ``peers`` or
+``raft_enabled`` is set) the server joins a replicated cluster
+(``server/replication.py``): it follows until it wins an election, every
+store write goes to a quorum first, and ``join_peer``/``remove_peer``
+change the membership.  Each server of such a cluster holds its own
+device; only the leader launches kernels.
 """
 
 from __future__ import annotations
@@ -128,11 +133,19 @@ class ServerConfig:
     overload_config: Optional[object] = None
     admission_rate: Optional[float] = None
     admission_burst: Optional[float] = None
-    # Multi-server consensus, carried for the agent's config file and
-    # flags: this package has no replication yet, and api.Agent refuses a
-    # config that sets either.
+    # Multi-server consensus (server/replication.py): peer HTTP addresses.
+    # Empty = single-server (immediate leadership, no replication).
+    server_id: str = ""
     peers: List[str] = field(default_factory=list)
+    # Run replication even with no configured peers (a single-server
+    # cluster that expects `server join` to grow it later).
     raft_enabled: bool = False
+    election_timeout: tuple = (0.25, 0.5)
+    raft_heartbeat_interval: float = 0.08
+    # Shared secret authenticating server↔server raft RPCs; required on
+    # /v1/internal/raft/* when set (otherwise those routes accept any
+    # caller when ACLs are off — see api/http_server.route).
+    cluster_secret: str = ""
 
 
 class Server:
@@ -159,8 +172,7 @@ class Server:
         )
         self.store = StateStore(matrix=self.matrix)
         self.store.scheduler_config = self.config.scheduler_config
-        # The reference's replicator (set by its setup_replication); this
-        # package has no replication yet.
+        # Set by setup_replication; None = a single server that leads.
         self.replicator = None
         if self.config.data_dir:
             from ..state.wal import WriteAheadLog
@@ -251,6 +263,10 @@ class Server:
         self._dry_cond = threading.Condition()
         self._dry_runs = 0
         self._installing = False
+        # Serializes establish_leadership and revoke_leadership: the
+        # replicator calls them from its election thread and from the
+        # thread of a step-down.
+        self._transition_lock = threading.RLock()
 
     def _register_telemetry_gauges(self) -> None:
         """The matrix, coalescer and encoder counters as pull gauges of the
@@ -332,29 +348,96 @@ class Server:
             self._index = max(self._index, self.store.latest_index) + 1
             return self._index
 
-    # Membership (`server join` / `server remove-peer`): the reference's
-    # answer when no replicator runs, which is always so in this package.
+    # ------------------------------------------------------------------
+    # Consensus (server/replication.py)
+    # ------------------------------------------------------------------
+
+    def setup_replication(self, self_addr: str) -> None:
+        """Join the configured peer set: this server starts as a follower
+        and only runs leader services after winning an election.  Call
+        before :meth:`start` (the agent does, with its HTTP address)."""
+        from .replication import Replicator
+
+        self.replicator = Replicator(
+            self,
+            server_id=self.config.server_id or self_addr,
+            self_addr=self_addr,
+            peer_addrs=self.config.peers,
+            election_timeout=self.config.election_timeout,
+            heartbeat_interval=self.config.raft_heartbeat_interval,
+            cluster_secret=self.config.cluster_secret,
+            state_dir=self.config.data_dir,
+        )
+        self.store.replicator = self.replicator
+        # Membership replicated through state (server join/leave) wins
+        # over the static config list — a WAL-restored server rejoins the
+        # set it last knew, not the one it booted with.
+        if self.store.raft_peers:
+            self.replicator.update_peers(self.store.raft_peers)
+
+    # ------------------------------------------------------------------
+    # Membership (nomad/serf.go join + operator_endpoint.go
+    # RaftRemovePeer — here an explicit replicated configuration change)
+    # ------------------------------------------------------------------
+
+    def _current_members(self) -> List[str]:
+        rep = self.replicator
+        if self.store.raft_peers:
+            return list(self.store.raft_peers)
+        members = set(self.config.peers)
+        if rep is not None:
+            members.add(rep.self_addr)
+            members.update(rep.peers)
+        return sorted(members)
 
     def join_peer(self, addr: str) -> List[str]:
-        raise ValueError("server is not running replication")
+        """Leader-side `server join`: add a member and replicate the new
+        configuration; the heartbeat loop then snapshots/repairs the
+        newcomer up to date."""
+        if self.replicator is None:
+            raise ValueError("server is not running replication")
+        self.replicator.ensure_leader()
+        members = set(self._current_members())
+        members.add(addr)
+        self.store.set_raft_peers(self.next_index(), sorted(members))
+        return sorted(members)
 
     def remove_peer(self, addr: str) -> List[str]:
-        raise ValueError("server is not running replication")
+        """Dead-peer eviction by operator command (RaftRemovePeer)."""
+        if self.replicator is None:
+            raise ValueError("server is not running replication")
+        self.replicator.ensure_leader()
+        members = set(self._current_members())
+        members.discard(addr)
+        self.store.set_raft_peers(self.next_index(), sorted(members))
+        return sorted(members)
 
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """A single server is always the leader (the reference's
-        multi-server start follows an election first)."""
+        """A single server leads at once; a replicated one follows until
+        it wins an election (monitorLeadership, leader.go:54)."""
+        if self.replicator is not None:
+            self.coalescer.start()
+            self.replicator.start()
+            return
         self.establish_leadership()
 
     def establish_leadership(self) -> None:
         """Enable leader-only services (establishLeadership,
-        leader.go:222)."""
-        if self._leader:
-            return
+        leader.go:222).  With a replicator, only while it holds the
+        leader role: a revoke queued by an earlier step-down and this
+        call may run in either order, and the role decides."""
+        with self._transition_lock:
+            if self._leader or (
+                self.replicator is not None and not self.replicator.is_leader
+            ):
+                return
+            self._establish_leadership_locked()
+
+    def _establish_leadership_locked(self) -> None:
         self._leader = True
         self.eval_broker.set_enabled(True)
         self.blocked_evals.set_enabled(True)
@@ -402,9 +485,17 @@ class Server:
                 thread.join()
 
     def revoke_leadership(self) -> None:
-        """Disable leader-only services (revokeLeadership, leader.go)."""
-        if not self._leader:
-            return
+        """Disable leader-only services (revokeLeadership, leader.go).
+        With a replicator, not while it holds the leader role again (see
+        :meth:`establish_leadership`)."""
+        with self._transition_lock:
+            if not self._leader or (
+                self.replicator is not None and self.replicator.is_leader
+            ):
+                return
+            self._revoke_leadership_locked()
+
+    def _revoke_leadership_locked(self) -> None:
         self._leader = False
         self.eval_broker.set_enabled(False)
         self.blocked_evals.set_enabled(False)
@@ -424,14 +515,18 @@ class Server:
 
     def install_snapshot(self, snapshot_wire: dict, seq: int) -> None:
         """Replace all state with another server's image
-        (``StateStore.install_snapshot``).  The reference installs only on
-        followers, which schedule nothing; so a leader steps down first
-        and its workers finish their evals, and no select holds rows of
-        the matrix that the install clears.  It takes leadership back
-        after, which re-enqueues the image's evals.  Dry runs
-        (:meth:`plan_job`) select through the same matrix: the install
-        waits for those in flight and holds new ones off until the image
-        is in, so none reads rows that the install reassigns."""
+        (``StateStore.install_snapshot``).  The replicator installs the
+        leader's image on a follower through here; a follower demoted a
+        moment earlier may still have workers selecting and dispatches on
+        the device.  So leadership is revoked first and the workers finish
+        their evals, and no select holds rows of the matrix that the
+        install clears.  A server that leads without a replicator takes
+        leadership back after, which re-enqueues the image's evals; a
+        replicated follower does not (its next election starts the
+        workers again).  Dry runs (:meth:`plan_job`) select through the
+        same matrix: the install waits for those in flight and holds new
+        ones off until the image is in, so none reads rows that the
+        install reassigns."""
         with self._dry_cond:
             while self._installing:
                 self._dry_cond.wait()
@@ -439,8 +534,10 @@ class Server:
             while self._dry_runs:
                 self._dry_cond.wait()
         try:
-            leader = self._leader
-            self.revoke_leadership()
+            with self._transition_lock:
+                leader = self._leader and self.replicator is None
+                if self._leader:
+                    self._revoke_leadership_locked()
             for w in self.workers:  # signal all first: each polls for 0.2 s
                 w.stop(timeout=0)
             for w in self.workers:
@@ -454,6 +551,9 @@ class Server:
                 self._dry_cond.notify_all()
 
     def shutdown(self) -> None:
+        if self.replicator is not None:
+            # First: no election may start leader services from here on.
+            self.replicator.stop()
         self._leader = False
         self._stop_leader_threads()
         self.deployment_watcher.stop()

@@ -72,20 +72,24 @@ def journaled(fn):
     reference journals timestamps inside raft request bodies for the same
     reason, e.g. structs.AllocUpdateRequest timestamps).
 
-    The reference package's wrapper also replicates the entry to a quorum
-    before the append; this package has no replicator yet.
+    With a replicator (``server/replication.py``) the entry goes to a
+    quorum of peers first, with no store lock held: a write that cannot
+    reach a quorum raises before anything lands in the log or the tables.
     """
     op = fn.__name__
     has_now = "now" in inspect.signature(fn).parameters
 
     @functools.wraps(fn)
     def wrapper(self, index, *args, **kwargs):
-        # Writers serialize on _write_lock (reentrant — mutators nest),
-        # then take _lock (the read lock) for the append and the apply.
+        # Writers serialize on _write_lock (reentrant — mutators nest);
+        # _lock (the READ lock) is held only for the in-memory apply, NOT
+        # across the replication quorum wait.  Without this split, every
+        # read — scheduler snapshots, blocking queries, HTTP GETs — stalls
+        # behind each write's network round-trip.
         with self._write_lock:
             with self._lock:
                 if (
-                    self.wal is None
+                    (self.wal is None and self.replicator is None)
                     or self._replaying
                     or self._applying_remote
                     or self._journal_depth > 0
@@ -95,18 +99,46 @@ def journaled(fn):
                     kwargs["now"] = _time.time()
                 from ..structs import serde
 
-                self.wal.append(index, op, {
+                args_wire = {
                     "args": [serde.to_wire(a) for a in args],
                     "kwargs": {
                         k: serde.to_wire(v) for k, v in kwargs.items()
                     },
-                })
+                }
+                replicator = self.replicator
+                entry = None
+                if replicator is not None:
+                    seq_base = (
+                        self.wal.seq if self.wal is not None
+                        else replicator.last_seq
+                    )
+                    entry = {
+                        "i": index, "s": seq_base + 1, "op": op,
+                        "a": args_wire,
+                    }
+            if replicator is not None:
+                # Replicate FIRST, with no store lock held: a write that
+                # cannot reach a quorum raises before anything lands
+                # locally (log or tables), so an uncommitted entry can
+                # never replay after a restart (commit-then-apply order;
+                # replication.py).  _write_lock keeps seq assignment and
+                # stream order race-free.
+                replicator.replicate(entry)
+            with self._lock:
+                if entry is not None:
+                    if self.wal is not None:
+                        self.wal.append_entry(entry)
+                else:
+                    self.wal.append(index, op, args_wire)
                 self._journal_depth += 1
                 try:
                     out = fn(self, index, *args, **kwargs)
                 finally:
                     self._journal_depth -= 1
-                if self.wal.appends_since_snapshot >= self.snapshot_every:
+                if (
+                    self.wal is not None
+                    and self.wal.appends_since_snapshot >= self.snapshot_every
+                ):
                     self.write_snapshot()
                 return out
 
@@ -154,8 +186,9 @@ class StateStore:
         # queries parked in wait_for_table return at once.
         self._watches_closed = False
         self.matrix = matrix if matrix is not None else NodeMatrix()
-        # The reference's replication seam; this package has no replicator
-        # yet, so it stays None (the HTTP API reads it).
+        # Replication seam (server/replication.py): when attached,
+        # mutations replicate to peers before applying; _applying_remote
+        # marks follower-side applies of the leader's stream.
         self.replicator = None
 
         # Durability seam (attach_wal): top-level mutations journal through
@@ -1066,10 +1099,19 @@ class StateStore:
     @journaled
     def set_raft_peers(self, index: int, addrs: List[str]) -> None:
         """Replace the replicated membership list (raft configuration
-        change); the snapshot image carries it as ``raft_peers``."""
+        change).  Replicated with the OLD peer set (replicate-first order
+        in @journaled), then applied — so the entry commits under the
+        quorum that authorized it; the snapshot image carries it as
+        ``raft_peers``."""
         with self._lock:
             self.raft_peers = list(addrs)
             self._bump("raft_peers", index)
+        rep = self.replicator
+        if rep is not None:
+            # Outside this method's own _lock block: update_peers takes
+            # the replicator lock, under which the replicator never takes
+            # a store lock.
+            rep.update_peers(addrs)
 
     @journaled
     def record_scaling_event(
@@ -1259,8 +1301,7 @@ class StateStore:
             self.snapshot_every = snapshot_every
 
     # ------------------------------------------------------------------
-    # Replication seam (a replicator feeds these; this package has none
-    # yet)
+    # Replication seam (server/replication.py feeds these on followers)
     # ------------------------------------------------------------------
 
     def apply_remote(self, entry: dict) -> None:
@@ -1306,6 +1347,11 @@ class StateStore:
             if self.wal is not None:
                 self.wal.seq = seq
                 self.wal.write_snapshot(self.to_snapshot_wire())
+        # A joiner learns the membership list from the image it was
+        # caught up with (outside _lock — see set_raft_peers).
+        rep = self.replicator
+        if rep is not None and self.raft_peers:
+            rep.update_peers(self.raft_peers)
 
     def _reset_tables_locked(self) -> None:
         self.matrix.clear()

@@ -26,6 +26,7 @@ from torch_parity import (
     agent_config,
     agent_pair,
     assert_same,
+    free_ports,
     http,
     mask,
     settle_agent,
@@ -644,15 +645,85 @@ def test_replication_routes_answer_501(pair):
     assert got["port"]["leader"] is True
 
 
-@pytest.mark.parametrize("field", ["peers", "raft_enabled"])
-def test_port_agent_refuses_replication_config(tmp_path, field):
-    cfg = agent_config("port", tmp_path, client=False)
-    if field == "peers":
-        cfg.server_config.peers = ["http://127.0.0.1:1"]
+def replicated_agents(pkg, tmp_path, field):
+    """Two server agents of one package: with ``peers`` both list both
+    addresses; with ``raft_enabled`` the first starts alone and the
+    second joins it through ``PUT /v1/operator/raft/join``.  Returns what
+    each step answered."""
+    if pkg == "jax":
+        from nomad_tpu.api import Agent
     else:
-        cfg.server_config.raft_enabled = True
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        start_agent("port", cfg)
+        from nomad_tpu_torch.api import Agent
+    ports = free_ports(2)
+    addrs = [f"http://127.0.0.1:{p}" for p in ports]
+
+    def build(i):
+        cfg = agent_config(pkg, tmp_path / f"s{i}", client=False,
+                           server_id=f"server-{i}",
+                           election_timeout=(0.15, 0.3),
+                           raft_heartbeat_interval=0.05)
+        cfg.http_port = ports[i]
+        if field == "peers":
+            cfg.server_config.peers = list(addrs)
+        else:
+            cfg.server_config.raft_enabled = True
+            cfg.server_config.peers = [addrs[0]] if i else []
+        return Agent(cfg) if pkg == "jax" else Agent(cfg, device="cpu")
+
+    agents, out = [], {}
+    try:
+        if field == "peers":
+            agents = [build(0), build(1)]
+        else:
+            agents = [build(0)]
+            agents[0].start()
+            wait_until(lambda: agents[0].server.replicator.is_leader,
+                       "the lone server to lead")
+            out["join"] = http(addrs[0], "PUT", "/v1/operator/raft/join",
+                               {"Addr": addrs[1]})[:2]
+            agents.append(build(1))
+        out["roles at start"] = sorted(
+            a.server.replicator.role for a in agents if not a.started_at)
+        for a in agents:
+            if not a.started_at:
+                a.start()
+        wait_until(lambda: sum(a.server.replicator.is_leader
+                               for a in agents) == 1, "one leader")
+        leader = next(a for a in agents if a.server.replicator.is_leader)
+        wait_until(lambda: all(len(a.server.replicator.peers) == 1
+                               and a.server.replicator.leader_addr
+                               == leader.rpc_addr for a in agents),
+                   "both members and the leader known everywhere")
+        for i, a in enumerate(agents):
+            out[f"leader {i}"] = http(a.rpc_addr, "GET",
+                                      "/v1/status/leader")[1] == (
+                                          leader.rpc_addr)
+            out[f"members {i}"] = sorted(
+                m["Addr"] == leader.rpc_addr for m in http(
+                    a.rpc_addr, "GET", "/v1/agent/members")[1]["Members"])
+        code, body, _ = http(leader.rpc_addr, "PUT", "/v1/jobs",
+                             {"Job": api_job(leader.rpc_addr, TINY)})
+        out["submit"] = code
+        wait_until(lambda: all(a.server.store.job_by_id("default", "tiny")
+                               for a in agents), "the job on both servers")
+        return out
+    finally:
+        for a in agents:
+            a.shutdown()
+
+
+@pytest.mark.parametrize("field", ["peers", "raft_enabled"])
+def test_agent_with_replication_config_follows_and_joins(tmp_path, field):
+    """An agent configured with ``peers`` or ``raft_enabled`` runs a
+    replicated server: it starts as a follower, one leader is elected (or
+    the lone one leads and the other joins it), and writes reach both; as
+    the reference's agents do."""
+    got = {pkg: replicated_agents(pkg, tmp_path / pkg, field)
+           for pkg in ("jax", "port")}
+    assert_same(got["jax"], got["port"])
+    assert got["port"]["submit"] == 200
+    if field == "raft_enabled":
+        assert got["port"]["join"][0] == 200
 
 
 def test_port_agent_without_a_card_raises(tmp_path):

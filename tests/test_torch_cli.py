@@ -13,17 +13,21 @@ Modelled on ``tests/test_api.py``, ``test_agent_surface.py`` and
 """
 
 import dataclasses
+import json
 import os
 import re
 import signal
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 import torch
 
-from torch_parity import agent_pair, http, settle_agent, wait_until
+from torch_parity import (agent_pair, free_ports, http, settle_agent,
+                          wait_until)
 
 torch.set_num_threads(1)
 
@@ -300,23 +304,80 @@ def test_config_files_give_the_same_agent_config(tmp_path):
     assert tcfg.server_config.peers == ["http://h1:1"]
 
 
+def spawn_agent(tmp_path, *args):
+    """``python -m nomad_tpu_torch.cli agent --device cpu --port 0`` with
+    ``args``; returns the process and its address from the start line."""
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch.cli", "agent", "--device",
+         "cpu", "--port", "0", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": REPO},
+    )
+    line = agent.stdout.readline()
+    if not line.startswith("agent started; HTTP API at "):
+        agent.kill()
+        raise AssertionError(line + agent.stderr.read())
+    return agent, line.rsplit(" ", 1)[1].strip()
+
+
+def stop_agent(agent):
+    """SIGINT; the agent must exit 0 within 30 s."""
+    try:
+        agent.send_signal(signal.SIGINT)
+        assert agent.wait(timeout=30) == 0
+    finally:
+        if agent.poll() is None:
+            agent.kill()
+            agent.wait(timeout=15)
+
+
+def raft_stats(addr, secret=None):
+    headers = {"X-Nomad-Cluster-Secret": secret} if secret else {}
+    req = urllib.request.Request(addr + "/v1/internal/raft/stats", data=b"{}",
+                                 method="POST", headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
 @pytest.mark.parametrize("key", ["server_id", "cluster_secret"])
-def test_config_file_refuses_replication_settings(tmp_path, capsys, key):
-    """The reference reads these for replication, which this package does
-    not have: a config that sets one is refused, by ``apply_config`` and
-    so by ``agent``, before any server is built."""
+def test_config_file_replication_settings_match_reference(tmp_path, key):
+    """``server_id`` and ``cluster_secret`` land in ``ServerConfig`` as the
+    reference's ``apply_config`` puts them, and ``agent`` starts a
+    replicated server with them: the id in the raft stats, the secret
+    required of raft RPCs."""
+    from nomad_tpu.api.agent import AgentConfig as JAgentConfig
+    from nomad_tpu.api.config_file import apply_config as japply
+    from nomad_tpu.api.config_file import load_config_files as jload
     from nomad_tpu_torch.api.agent import AgentConfig
     from nomad_tpu_torch.api.config_file import apply_config, load_config_files
-    from nomad_tpu_torch.cli import main
 
     conf = tmp_path / "agent.hcl"
-    conf.write_text(f'server {{\n  workers = 1\n  {key} = "s1"\n}}\n')
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        apply_config(load_config_files([str(conf)]), AgentConfig())
-    assert main(["agent", "--device", "cpu", "--port", "0", "--config",
-                 str(conf)]) == 1
-    err = capsys.readouterr().err
-    assert key in err and "queue 1 item 6" in err
+    conf.write_text(f'server {{\n  workers = 1\n  node_capacity = 16\n'
+                    f'  raft_enabled = true\n  {key} = "s1"\n}}\n')
+    jcfg, tcfg = JAgentConfig(), AgentConfig()
+    japply(jload([str(conf)]), jcfg)
+    apply_config(load_config_files([str(conf)]), tcfg)
+    got = {k: getattr(tcfg.server_config, k)
+           for k in ("server_id", "cluster_secret", "raft_enabled")}
+    assert got == {k: getattr(jcfg.server_config, k) for k in got}
+    assert got[key] == "s1" and got["raft_enabled"] is True
+
+    agent, addr = spawn_agent(tmp_path, "--config", str(conf))
+    try:
+        secret = "s1" if key == "cluster_secret" else None
+        wait_until(lambda: raft_stats(addr, secret)[1].get("Role")
+                   == "leader", "the lone server to lead")
+        code, stats = raft_stats(addr, secret)
+        assert code == 200
+        assert stats["ID"] == ("s1" if key == "server_id" else addr)
+        if key == "cluster_secret":
+            assert raft_stats(addr)[0] == 403
+            assert raft_stats(addr, "wrong")[0] == 403
+    finally:
+        stop_agent(agent)
 
 
 def test_acl_namespace_and_search_through_the_module(tmp_path, capsys):
@@ -415,11 +476,47 @@ def test_agent_without_a_device_fails_here(tmp_path):
     assert "agent started" not in proc.stdout
 
 
-def test_agent_with_replication_flags_fails(tmp_path):
-    proc = port_cli("agent", "--server-only", "--device", "cpu", "--port",
-                    "0", "--raft", timeout=120)
-    assert proc.returncode == 1
-    assert "queue 1 item 6" in proc.stderr
+def test_agent_with_replication_flags_runs_a_replicated_server(tmp_path):
+    """``agent --raft`` starts a one-member cluster that leads itself;
+    ``server join`` adds a second ``agent --peers`` process, ``server
+    members`` lists both, ``server remove-peer`` takes the second out;
+    both stop on SIGINT with exit code 0."""
+    first, addr = spawn_agent(tmp_path, "--server-only", "--raft")
+    second = None
+    try:
+        wait_until(lambda: raft_stats(addr)[1].get("Role") == "leader",
+                   "the lone server to lead")
+        port = json.loads(port_cli("--address", addr, "server",
+                                   "members").stdout)["Members"][0]["Addr"]
+        assert port == addr
+        second_port = free_ports(1)[0]
+        second_addr = f"http://127.0.0.1:{second_port}"
+        join = port_cli("--address", addr, "server", "join", second_addr)
+        assert join.returncode == 0 and second_addr in join.stdout
+        second = subprocess.Popen(
+            [sys.executable, "-m", "nomad_tpu_torch.cli", "agent",
+             "--device", "cpu", "--server-only", "--port", str(second_port),
+             "--peers", addr],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": REPO})
+        assert second.stdout.readline().startswith("agent started")
+        wait_until(lambda: raft_stats(second_addr)[1].get("LeaderAddr")
+                   == addr and raft_stats(addr)[1]["Peers"].get(
+                       second_addr, {}).get("Healthy"), "the joiner")
+        members = json.loads(port_cli("--address", addr, "server",
+                                      "members").stdout)["Members"]
+        assert sorted(m["Addr"] for m in members) == sorted(
+            [addr, second_addr])
+        out = port_cli("--address", addr, "server", "remove-peer",
+                       second_addr)
+        assert out.returncode == 0 and second_addr not in out.stdout
+        stop_agent(second)
+    finally:
+        if second is not None and second.poll() is None:
+            second.kill()
+            second.wait(timeout=15)
+        stop_agent(first)
+
 
 
 def test_agent_on_cpu_serves_job_run_and_stops_on_sigint(tmp_path):

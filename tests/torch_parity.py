@@ -8,6 +8,7 @@ runs in seconds on the CPU.
 
 import json
 import re
+import socket
 import time
 import urllib.error
 import urllib.request
@@ -284,6 +285,18 @@ def http(addr, method, path, body=None, token="", raw=False, timeout=30):
     if raw:
         return code, payload, hdrs
     return code, (json.loads(payload) if payload else None), hdrs
+
+
+def free_ports(n):
+    """``n`` loopback ports free at the time of the call (for agents whose
+    peers must know their addresses before they start)."""
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
 
 
 def agent_config(pkg_name, data_dir, client=True, server=True, **server_kw):
