@@ -341,6 +341,37 @@ Phases:
    from-scratch one.  Logs the launch counts and offer copies per
    dispatch (14b fails unless a virtual mesh's dispatch is P + 1
    launches and no copy), the dispatch time and both bursts' evals/s.
+15. chaos — the port's own chaos scenarios (``nomad_tpu_torch/chaos/
+   scenarios.py``) and the shard-partition step on the card, the kernel
+   counts zeroed before each part and read after it; no plain version
+   may run.  15a ``wedged_dispatch_recovers`` at 10,000 nodes (pipeline
+   depth 8, crowd 24): the wedge fires once, the breaker trips, every
+   dispatch it refused while open launched nothing, the half-open canary
+   re-closes it, every crowd job is placed in full through ``fused_place``
+   and ``allocs_fit_verify``, and the throughput ratio holds ≥ 0.5; logs
+   crowd → trip, trip → close and crowd → placed beside phase 10's drill.
+   15b ``device_slow_flapping`` on a 10,000-node matrix (60 dispatches,
+   p = 0.5): flips within the budget, every placement completed (a
+   refused one re-sent), a fetch classified slow.  15c
+   ``shard_loss_evacuation`` on ``["cuda"] * 8`` (four node shards) over
+   10,000 nodes: ``sharded_place`` launched before the loss, for the
+   in-flight placement on the survivors' mesh and after the heal; the
+   evacuated layout equals a from-scratch 3-shard one row for row and
+   the resident copy a from-scratch lay-out bit for bit; logs the
+   evacuation's host ms and re-upload bytes.  15d the shard partition on
+   the same mesh: a placement launched before the darkening onto the
+   dark shard is refused by the applier's eligibility-gated re-verify
+   for every pick, a placement after it finds no row there, the heal
+   re-lights it and later placements land and commit there.  15e
+   ``leader_kill_mid_apply`` and ``partition_then_heal`` (twice, one seed)
+   with three in-process server agents on the card: equal images, the
+   new leader's own dispatches launch ``fused_place`` and
+   ``allocs_fit_verify`` after the old leader's shutdown returned (no
+   other server's coalescer dispatching), and the partition's fired
+   ``(seam, kind)`` list the same in both runs.  These run at the
+   reference's node counts: phase 13 holds a failover at 10,000 nodes,
+   and registering 10,000 nodes through a replicated leader (a write's
+   quorum is 7-16 ms) would take minutes.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -7048,6 +7079,406 @@ def phase_sharded(card: str, results: dict) -> None:
         srv.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: chaos on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_CROWD = 24
+CHAOS_MESH = 8  # ["cuda"] * 8: two batch rows by four node shards
+CHAOS_PARTITION_SAMPLE = 64  # dark nodes whose plans must be refused
+
+
+def chaos_launches(k) -> dict:
+    return {
+        "fused_place": k.fused_place.launches,
+        "allocs_fit_verify": k.allocs_fit_verify.launches,
+        "allocs_fit_verify_window": k.allocs_fit_verify.window_launches,
+        "sharded_place": k.sharded_place.launches,
+        "sharded_usage": k.sharded_usage.launches,
+        "place_batch": k.place_batch.launches,
+        "plain": (k.place_lanes.calls + k.verify_lanes.calls
+                  + k.system_feasible_plain.calls
+                  + k.sharded_place_plain.calls
+                  + k.sharded_usage_plain.calls
+                  + k.score_batch_plain.calls
+                  + k.verify_plan_fit_plain.calls),
+    }
+
+
+def check_chaos(report: dict, launches: dict, label: str,
+                kernels=("fused_place", "allocs_fit_verify")) -> None:
+    """A scenario's report holds no violation, its kernels launched and no
+    plain version (nor the staged kernel) ran."""
+    if report["violations"]:
+        raise AssertionError(f"{label}: violations {report['violations']}")
+    if any(launches[name] <= 0 for name in kernels):
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    if launches["plain"] or launches["place_batch"]:
+        raise AssertionError(f"{label}: a plain version or the staged "
+                             f"kernel ran: {launches}")
+
+
+class _Patched:
+    """Replace attributes for a block and put them back after it."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in self.triples]
+        for obj, name, value in self.triples:
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+        return False
+
+
+def chaos_wedge(card: str, out: dict) -> None:
+    """15a: ``wedged_dispatch_recovers`` at the north-star width.  The
+    breaker's verdicts and the coalescer's launches are recorded around
+    it: every refused dispatch launched nothing."""
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.obs.breaker import DeviceBreaker
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+
+    verdicts, launched = [], []
+    allow, dispatch = (DeviceBreaker.allow_device_dispatch,
+                       DeviceCoalescer._dispatch)
+
+    def watched_allow(self, *a, **kw):
+        verdicts.append(allow(self, *a, **kw))
+        return verdicts[-1]
+
+    def watched_dispatch(self, batch):
+        launched.append(len(batch))
+        return dispatch(self, batch)
+
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-chaos-")
+    try:
+        k.reset_counts()
+        with _Patched((DeviceBreaker, "allow_device_dispatch", watched_allow),
+                      (DeviceCoalescer, "_dispatch", watched_dispatch)):
+            r = SCENARIOS["wedged_dispatch_recovers"](
+                11, tmp, crowd=CHAOS_CROWD, device="cuda", n_nodes=N_NODES)
+        launches = chaos_launches(k)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_chaos(r, launches, "15a")
+    wedges = [f for f in r["faults"] if f[1] == "wedge"]
+    admitted = sum(1 for ok, _ in verdicts if ok)
+    refused = len(verdicts) - admitted
+    if len(wedges) != 1 or not r["tripped"] or r["wedged_dispatches"] != 1:
+        raise AssertionError(f"15a: the wedge did not fire once and trip: "
+                             f"{r}")
+    if refused < 1 or refused != r["degraded_dispatches"] or len(
+            launched) != admitted:
+        raise AssertionError(f"15a: {len(launched)} launches, {admitted} "
+                             f"admitted, {refused} refused, report "
+                             f"{r['degraded_dispatches']}")
+    if not r["recovered"] or not r["placed_after_close"] or r[
+            "crowd_placed"] != CHAOS_CROWD:
+        raise AssertionError(f"15a: not re-closed or the crowd not placed "
+                             f"in full: {r}")
+    if r["throughput_ratio"] < 0.5:
+        raise AssertionError(f"15a: throughput ratio {r['throughput_ratio']}")
+    out["wedge"] = dict(r, launches=launches, refused=refused,
+                        launched=len(launched))
+    drill = out.get("drill", {})
+    log(f"15a wedged_dispatch_recovers ({N_NODES} nodes): crowd -> trip "
+        f"{r['crowd_to_trip_s']:.3f} s, trip -> close "
+        f"{r['trip_to_close_s']:.3f} s, crowd -> every crowd job placed "
+        f"{r['crowd_to_placed_s']:.3f} s; {refused} dispatches refused while "
+        f"open, {len(launched)} launched; rates pre {r['pre_rate']} / while "
+        f"open {r['post_rate']} / after {r['recovered_rate']} evals/s, ratio "
+        f"{r['throughput_ratio']}; launches {launches} (phase 10's drill: "
+        f"spin -> trip {drill.get('spin_to_trip_s', float('nan')):.3f} s, "
+        f"trip -> close {drill.get('trip_to_close_s', float('nan')):.3f} s, "
+        f"spin -> last placement "
+        f"{drill.get('spin_to_last_placement_s', float('nan')):.3f} s) "
+        f"(card: {card})")
+
+
+def chaos_slow(card: str, out: dict) -> None:
+    """15b: ``device_slow_flapping`` on a 10,000-node matrix."""
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.ops import kernels as k
+
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-chaos-")
+    try:
+        k.reset_counts()
+        t0 = time.perf_counter()
+        r = SCENARIOS["device_slow_flapping"](7, tmp, device="cuda",
+                                              n_nodes=N_NODES)
+        took = time.perf_counter() - t0
+        launches = chaos_launches(k)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_chaos(r, launches, "15b")
+    if (r["flips"] > r["flip_budget"] or r["placed"] != 60
+            or r["slow_recorded"] < 1):
+        raise AssertionError(f"15b: {r}")
+    out["slow"] = dict(r, launches=launches, seconds=took)
+    log(f"15b device_slow_flapping ({N_NODES} nodes): {r['placed']} placed, "
+        f"{r['refused']} refusals re-sent, {r['slow_recorded']} slow, "
+        f"{len(r['faults'])} faults fired, trips {r['trips']}, flips "
+        f"{r['flips']} of {r['flip_budget']} ({r['flips_suppressed']} "
+        f"suppressed), final {r['final_state']}; {took:.2f} s; launches "
+        f"{launches} (card: {card})")
+
+
+def chaos_shard_loss(card: str, out: dict) -> None:
+    """15c: ``shard_loss_evacuation`` over 10,000 nodes on four virtual
+    node shards.  Each dispatch of the scenario's mesh coalescer records
+    its ``sharded_place`` launches and the mesh it ran on."""
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+
+    per_dispatch = []
+    dispatch = DeviceCoalescer._dispatch
+
+    def watched_dispatch(self, batch):
+        before = k.sharded_place.launches
+        got = dispatch(self, batch)
+        if self._mesh_devices is not None:
+            per_dispatch.append((k.sharded_place.launches - before,
+                                 self._mesh.shape[1]))
+        return got
+
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-chaos-")
+    try:
+        k.reset_counts()
+        with _Patched((DeviceCoalescer, "_dispatch", watched_dispatch)):
+            r = SCENARIOS["shard_loss_evacuation"](5, tmp, device="cuda",
+                                                   n_nodes=N_NODES)
+        launches = chaos_launches(k)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_chaos(r, launches, "15c",
+                kernels=("sharded_place", "allocs_fit_verify_window"))
+    if [shards for _, shards in per_dispatch] != [4, 3, 4] or any(
+            n <= 0 for n, _ in per_dispatch):
+        raise AssertionError(f"15c: sharded_place launches and node shards "
+                             f"a dispatch {per_dispatch}")
+    if (r["parity_mismatches"] or r["resident_mismatches"]
+            or r["restored_shards"] != 4 or r["post_shards"] != 3):
+        raise AssertionError(f"15c: {r}")
+    out["shard_loss"] = dict(r, launches=launches,
+                             per_dispatch=per_dispatch)
+    log(f"15c shard_loss_evacuation ({N_NODES} nodes, x{CHAOS_MESH} "
+        f"virtual): shards {r['pre_counts']} -> {r['post_counts']} -> "
+        f"{r['restored_shards']}; evacuation {r['evacuation_ms']:.3f} ms on "
+        f"the host, re-upload {r['reupload_bytes']} bytes; sharded_place "
+        f"launches and node shards a dispatch {per_dispatch}; rows "
+        f"{r['pre_placed_row']}, {r['placed_row']}; launches {launches} "
+        f"(card: {card})")
+
+
+def chaos_partition(card: str, out: dict) -> None:
+    """15d: the shard partition (the reference's TestShardPartitionSeam)
+    on the 15c mesh over 10,000 nodes."""
+    from nomad_tpu_torch import mock as tmock
+    from nomad_tpu_torch.chaos import FaultSpec, check_store, injected
+    from nomad_tpu_torch.chaos.scenarios import _coalescer_inputs
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.structs.types import Plan
+
+    srv = Server(ServerConfig(num_workers=2, heartbeat_min_ttl=3600.0,
+                              heartbeat_max_ttl=7200.0,
+                              node_capacity=CAPACITY), device="cuda")
+    srv.start()
+    coal = None
+    try:
+        m = srv.store.matrix
+        m.set_shard_count(4)
+        nodes = {}
+        for _ in range(N_NODES):
+            node = tmock.node()
+            nodes[node.id] = node
+            srv.register_node(node)
+        coal = DeviceCoalescer(m, max_lanes=2, linger_s=0.0,
+                               pipeline_depth=1,
+                               device=["cuda"] * CHAOS_MESH)
+        coal.start()
+        # The target is shard 0 (equal claims tie to the lowest index):
+        # a request that may only use shard 0's rows.
+        shard0 = set(m.shard_nodes(0))
+        job = tmock.job()
+
+        def shard0_inputs():
+            inp = _coalescer_inputs(m, job)
+            inp["host_mask"][:] = False
+            for nid in shard0:
+                inp["host_mask"][m.row_of[nid]] = True
+            return inp
+
+        def plan_for(nid):
+            j = tmock.job()
+            j.task_groups[0].count = 1
+            return Plan(job=j, node_allocation={
+                nid: [tmock.alloc(j, nodes[nid])]})
+
+        k.reset_counts()
+        with injected(9, [FaultSpec("shard.partition", "dark",
+                                    count=1)]) as inj:
+            res = coal.place(**shard0_inputs())
+        launches = chaos_launches(k)
+        if [f.kind for f in inj.log] != ["dark"] or sorted(
+                coal._dark_shards) != [0]:
+            raise AssertionError(f"15d: fired {inj.log}, dark "
+                                 f"{sorted(coal._dark_shards)}")
+        if set(coal._dark_shards[0]) != shard0:
+            raise AssertionError("15d: the darkened nodes are not shard 0's")
+        picks = [m.node_of[int(r)] for r in res.rows if r >= 0]
+        if not picks or any(nid not in shard0 for nid in picks):
+            raise AssertionError(f"15d: the in-flight picks {res.rows}")
+        sample = sorted(shard0)[::max(1, len(shard0)
+                                      // CHAOS_PARTITION_SAMPLE)]
+        targets = list(dict.fromkeys(picks + sample))
+        committed = [nid for nid in targets
+                     if srv.plan_applier.apply(plan_for(nid)).node_allocation]
+        if committed:
+            raise AssertionError(f"15d: {len(committed)} plans onto the dark "
+                                 f"shard committed")
+        after_dark = coal.place(**shard0_inputs())
+        if (after_dark.rows >= 0).any():
+            raise AssertionError(f"15d: a placement after the darkening "
+                                 f"found rows {after_dark.rows}")
+        healed = coal.heal_shard_partitions()
+        later = coal.place(**shard0_inputs())
+        later_picks = [m.node_of[int(r)] for r in later.rows if r >= 0]
+        landed = [nid for nid in dict.fromkeys(later_picks + targets)
+                  if srv.plan_applier.apply(plan_for(nid)).node_allocation]
+        if healed != [0] or not later_picks or any(
+                nid not in shard0 for nid in later_picks) or len(
+                landed) != len(dict.fromkeys(later_picks + targets)):
+            raise AssertionError(f"15d: healed {healed}, later picks "
+                                 f"{later.rows}, {len(landed)} committed")
+        launches_all = chaos_launches(k)
+        violations = check_store(srv)
+        if violations:
+            raise AssertionError(f"15d: violations {violations}")
+        check_chaos({"violations": []}, launches_all, "15d",
+                    kernels=("sharded_place", "allocs_fit_verify_window"))
+        if launches["sharded_place"] <= 0:
+            raise AssertionError(f"15d: the in-flight placement launched "
+                                 f"no sharded_place: {launches}")
+        out["partition"] = {"refused": len(targets), "picks": len(picks),
+                            "landed": len(landed), "launches": launches_all}
+        log(f"15d shard partition ({N_NODES} nodes, x{CHAOS_MESH} virtual): "
+            f"shard 0's {len(shard0)} nodes darkened mid-dispatch; all "
+            f"{len(targets)} plans onto it refused ({len(picks)} in-flight "
+            f"picks, {len(sample)} sampled nodes), a placement after it "
+            f"found none there; healed {healed}, {len(landed)} plans there "
+            f"committed; launches {launches_all} (card: {card})")
+    finally:
+        if coal is not None:
+            coal.stop()
+        srv.shutdown()
+
+
+def chaos_cluster(card: str, out: dict) -> None:
+    """15e: ``leader_kill_mid_apply`` and ``partition_then_heal`` (twice)
+    with three in-process server agents on the card, at the reference's
+    node counts (see the phase's docstring)."""
+    from nomad_tpu_torch.api.agent import Agent
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.ops import kernels as k
+
+    agents, marks = [], {}
+    start, shutdown = Agent.start, Agent.shutdown
+
+    def watched_start(self, *a, **kw):
+        agents.append(self)
+        return start(self, *a, **kw)
+
+    def watched_shutdown(self, *a, **kw):
+        got = shutdown(self, *a, **kw)
+        if "launches" not in marks:
+            # The old leader's shutdown has returned: count from here.
+            marks["launches"] = chaos_launches(k)
+            marks["dispatches"] = {id(x): x.server.coalescer.dispatches
+                                   for x in agents}
+            marks["old"] = id(self)
+            marks["at"] = time.perf_counter()
+        return got
+
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-chaos-")
+    try:
+        k.reset_counts()
+        t0 = time.perf_counter()
+        with _Patched((Agent, "start", watched_start),
+                      (Agent, "shutdown", watched_shutdown)):
+            r = SCENARIOS["leader_kill_mid_apply"](11, tmp, device="cuda")
+        kill_s = time.perf_counter() - t0
+        after = chaos_launches(k)
+        grown = [x for x in agents
+                 if x.server.coalescer.dispatches
+                 > marks["dispatches"][id(x)]]
+        since = {name: after[name] - marks["launches"][name]
+                 for name in after}
+        since["plain"], since["place_batch"] = (after["plain"],
+                                                after["place_batch"])
+        check_chaos(r, since, "15e leader kill")
+        if len(grown) != 1 or id(grown[0]) == marks["old"]:
+            raise AssertionError(f"15e: after the shutdown {len(grown)} "
+                                 f"coalescers dispatched")
+        if not any(k_ == "delay" for _, k_, _ in r["faults"]):
+            raise AssertionError(f"15e: no delay fired: {r['faults']}")
+        runs = []
+        for i in range(2):
+            k.reset_counts()
+            t0 = time.perf_counter()
+            rp = SCENARIOS["partition_then_heal"](3, os.path.join(
+                tmp, f"p{i}"), device="cuda")
+            runs.append((rp, chaos_launches(k), time.perf_counter() - t0))
+        for rp, launches, _ in runs:
+            check_chaos(rp, launches, "15e partition")
+            if len([f for f in rp["faults"] if f[1] == "drop"]) != rp[
+                    "drops"]:
+                raise AssertionError(f"15e: drops {rp}")
+        fired = [[(s, kind) for s, kind, _ in rp["faults"]]
+                 for rp, _, _ in runs]
+        if fired[0] != fired[1]:
+            raise AssertionError(f"15e: the partition fired {fired[0]} then "
+                                 f"{fired[1]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cluster"] = {"kill_launches": since, "kill_s": kill_s,
+                      "partition_s": [t for _, _, t in runs],
+                      "drops": runs[0][0]["drops"]}
+    log(f"15e leader_kill_mid_apply: converged, the new leader launched "
+        f"{since['fused_place']} fused_place / {since['allocs_fit_verify']} "
+        f"allocs_fit_verify after the old leader's shutdown returned, "
+        f"{kill_s:.2f} s; partition_then_heal twice: {runs[0][0]['drops']} "
+        f"drops each, the same fired list, {runs[0][2]:.2f} / "
+        f"{runs[1][2]:.2f} s, launches {runs[0][1]} (card: {card})")
+
+
+def phase_chaos(card: str, results: dict) -> None:
+    """Phase 15: the chaos scenarios through the card's kernels."""
+    out = results.setdefault("chaos", {})
+    out["drill"] = results.get("guarded", {})
+    timed = {}
+    for name, fn in (("15a", chaos_wedge), ("15b", chaos_slow),
+                     ("15c", chaos_shard_loss), ("15d", chaos_partition),
+                     ("15e", chaos_cluster)):
+        t0 = time.perf_counter()
+        fn(card, out)
+        timed[name] = time.perf_counter() - t0
+    out.pop("drill")
+    out["seconds"] = timed
+    log(f"chaos: parts {', '.join(f'{n} {t:.1f} s' for n, t in timed.items())}"
+        f" (card: {card})")
+
+
 def main() -> int:
     import torch
 
@@ -7121,6 +7552,7 @@ def run_phases() -> int:
     timed("front door", phase_front_door, card, results)
     timed("replicated", phase_replicated, card, results)
     timed("sharded", phase_sharded, card, results)
+    timed("chaos", phase_chaos, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "

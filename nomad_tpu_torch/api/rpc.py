@@ -15,8 +15,8 @@ has between ``client.RPC`` and in-process test servers.
 Blocking queries carry their wait budget in the request and hold the HTTP
 response open server-side (the memdb WatchSet discipline over the wire).
 
-A copy of the reference package's ``api/rpc.py`` without its ``rpc.call``
-chaos seam (no injector in this package yet).
+A copy of the reference package's ``api/rpc.py``, its ``rpc.call`` chaos
+seam (``drop``, ``error``, ``dup``) and trace event included.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ import urllib.error
 import urllib.request
 from typing import List, Tuple
 
+from .. import trace
+from ..chaos import inject
 from ..retry import RetryBudgetExceeded, RetryPolicy, retry_call
 from ..structs import serde
 from ..structs.types import Allocation, Node
@@ -52,6 +54,15 @@ class HTTPServerRPC:
     # ------------------------------------------------------------------
 
     def _call(self, path: str, payload=None, timeout=None):
+        # Chaos seam: a request can be lost, erred, delayed (handled inside
+        # inject), or duplicated before it ever reaches the wire.
+        fault = inject("rpc.call", path=path, addr=self.addr)
+        trace.event("seam.rpc.call", path=path)
+        if fault is not None:
+            if fault.kind == "drop":
+                raise RPCError(f"{path}: injected connection drop")
+            if fault.kind == "error":
+                raise RPCError(f"{path}: 500 injected server error")
         data = json.dumps(payload).encode() if payload is not None else None
         headers = {"Content-Type": "application/json"}
         if self.token:
@@ -76,6 +87,10 @@ class HTTPServerRPC:
             except urllib.error.URLError as exc:
                 raise RPCError(f"{path}: {exc.reason}") from exc
 
+        if fault is not None and fault.kind == "dup":
+            # A retransmitted request (lost ack): the server must treat the
+            # second copy idempotently; callers see the second response.
+            post_once()
         return post_once()
 
     # ------------------------------------------------------------------

@@ -8,10 +8,10 @@ Reference: ``client/client.go``: ``registerAndHeartbeat`` (:1550), the
 version slots in behind the same three calls (register/heartbeat/get-allocs/
 update-allocs).
 
-A copy of the reference package's ``client/client.py`` without the
-``client.heartbeat`` chaos seam and its trace event (this package has no
-fault injector yet).  The server it talks to schedules on the card; the
-agent itself is host Python and touches no device.
+A copy of the reference package's ``client/client.py``, its
+``client.heartbeat`` chaos seam and trace event included.  The server it
+talks to schedules on the card; the agent itself is host Python and
+touches no device.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from .. import trace
+from ..chaos import inject
 from ..retry import Backoff, RetryPolicy, retry_call
 from ..structs.types import (
     AllocDeploymentStatus,
@@ -265,6 +267,18 @@ class Client:
             if self._shutdown.wait(timeout=wait):
                 return
             try:
+                # Chaos seam: a missed beat ("skip") models a lossy link or
+                # a wedged agent thread; "error" models a reachable-but-
+                # failing server.  Delays are absorbed inside inject —
+                # a slow heartbeat that still lands within TTL must be
+                # harmless.
+                fault = inject("client.heartbeat", node=self.node.id)
+                trace.event("seam.client.heartbeat", node=self.node.id)
+                if fault is not None:
+                    if fault.kind == "skip":
+                        continue
+                    if fault.kind == "error":
+                        raise RuntimeError("injected heartbeat failure")
                 # Did the TTL the server promised lapse between acked
                 # beats?  If so the server may have expired us even though
                 # no beat ever FAILED from this side (silently lost beats).

@@ -14,9 +14,9 @@ Two built-ins:
 - ``RawExecDriver`` — un-isolated subprocess execution (reference:
   ``drivers/rawexec/``).
 
-A copy of the reference package's ``client/driver.py`` without its chaos
-seams (``driver.start``/``driver.wait``/``driver.stop`` and their trace
-events: this package has no fault injector yet).  The exec driver's
+A copy of the reference package's ``client/driver.py``, its chaos seams
+included (``driver.start``/``driver.wait``/``driver.stop`` through
+:func:`_chaos`, with their trace events).  The exec driver's
 Python sidecar is this package's own, ``nomad_tpu_torch.client.executor``.
 Every process is started with ``subprocess.Popen`` (fork and exec), so a
 driver is safe in a process that holds a CUDA context.
@@ -33,6 +33,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from .. import trace
+from ..chaos import inject
 from ..retry import RetryBudgetExceeded, RetryPolicy, retry_call
 from ..structs.types import Task
 
@@ -65,6 +67,23 @@ class TaskHandle:
 
 class DriverError(Exception):
     pass
+
+
+def _chaos(point: str, driver: str, task: str):
+    """Driver-seam chaos hook.  "hang" (a wedged runtime syscall) is
+    absorbed here as a sleep; "error" raises; anything else — "exit127"
+    at start, "wedge" at wait, "skip" at stop — is returned for the
+    caller to act on, since only it can fabricate the right outcome."""
+    fault = inject(point, driver=driver, task=task)
+    trace.event("seam." + point, driver=driver, task=task)
+    if fault is None:
+        return None
+    if fault.kind == "hang":
+        time.sleep(fault.duration or 1.0)
+        return None
+    if fault.kind == "error":
+        raise DriverError(f"injected {point} failure")
+    return fault
 
 
 class Driver:
@@ -134,6 +153,11 @@ class MockDriver(Driver):
 
     def start_task(self, handle: TaskHandle, task: Task, task_dir: str) -> None:
         cfg = task.config or {}
+        fault = _chaos("driver.start", self.name, task.name)
+        if fault is not None and fault.kind == "exit127":
+            # Command-not-found at exec time: starts "successfully", then
+            # the child exits 127 immediately.
+            cfg = dict(cfg, run_for=0, exit_code=127)
         if cfg.get("start_error"):
             raise DriverError(str(cfg["start_error"]))
         block = float(cfg.get("start_block_for", 0))
@@ -165,6 +189,12 @@ class MockDriver(Driver):
         handle.config = dict(cfg)
 
     def wait_task(self, handle: TaskHandle, timeout: Optional[float] = None):
+        fault = _chaos("driver.wait", self.name, handle.task_name)
+        if fault is not None and fault.kind == "wedge":
+            # Wedged driver: never reports the exit, only "still running".
+            if timeout:
+                time.sleep(min(timeout, 0.05))
+            return None
         inst = self._instances.get(handle.id)
         if inst is None:
             return ExitResult(err="unknown task")
@@ -173,6 +203,9 @@ class MockDriver(Driver):
         return inst.result
 
     def stop_task(self, handle: TaskHandle, kill_timeout: float) -> None:
+        fault = _chaos("driver.stop", self.name, handle.task_name)
+        if fault is not None and fault.kind == "skip":
+            return  # stop request swallowed by a wedged runtime
         inst = self._instances.get(handle.id)
         if inst is None:
             return
@@ -230,6 +263,9 @@ class RawExecDriver(Driver):
         if not command:
             raise DriverError("raw_exec requires config.command")
         args = [str(command)] + [str(a) for a in cfg.get("args", [])]
+        fault = _chaos("driver.start", self.name, task.name)
+        if fault is not None and fault.kind == "exit127":
+            args = ["/bin/sh", "-c", "exit 127"]  # command-not-found
         stdout = stderr = None
         try:
             stdout = open(os.path.join(task_dir, f"{task.name}.stdout"), "ab")
@@ -258,6 +294,11 @@ class RawExecDriver(Driver):
         handle.started_at = time.time()
 
     def wait_task(self, handle: TaskHandle, timeout: Optional[float] = None):
+        fault = _chaos("driver.wait", self.name, handle.task_name)
+        if fault is not None and fault.kind == "wedge":
+            if timeout:
+                time.sleep(min(timeout, 0.05))
+            return None
         proc = self._procs.get(handle.id)
         if proc is None:
             return ExitResult(err="unknown task")
@@ -575,6 +616,9 @@ class ExecDriver(Driver):
         env = dict(os.environ)
         env.update({k: str(v) for k, v in (task.env or {}).items()})
         argv = [str(command)] + [str(a) for a in cfg.get("args", [])]
+        fault = _chaos("driver.start", self.name, task.name)
+        if fault is not None and fault.kind == "exit127":
+            argv = ["/bin/sh", "-c", "exit 127"]  # command-not-found
         try:
             out = sidecar.call(
                 "start",
@@ -595,6 +639,11 @@ class ExecDriver(Driver):
         handle.started_at = float(out["start_ts"])
 
     def wait_task(self, handle: TaskHandle, timeout: Optional[float] = None):
+        fault = _chaos("driver.wait", self.name, handle.task_name)
+        if fault is not None and fault.kind == "wedge":
+            if timeout:
+                time.sleep(min(timeout, 0.05))
+            return None
         sidecar = self._get_sidecar(handle.config.get("state_dir", ""))
         deadline = None if timeout is None else time.time() + timeout
         while True:

@@ -35,8 +35,8 @@ than no controller (each flip is a cluster-wide behavior change):
 Every actuator decision site emits a trace event and increments a
 registered counter.  The full decision surface is :meth:`report` (the
 reference serves it at ``GET /v1/overload``).  A copy of the reference
-package's controller without its chaos seam (injected lost actuations,
-so ``actuations_lost`` stays 0 here).
+package's controller, its ``controller.actuate`` chaos seam (an injected
+lost actuation, counted in ``actuations_lost``) included.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from .. import trace
+from ..chaos.injector import inject
 from ..metrics import RollingWindow
 from ..retry import env_float, env_int
 
@@ -262,6 +263,9 @@ class OverloadController:
     # counter) ----------------------------------------------------------
 
     def _actuate_steady(self, reason: str) -> bool:
+        spec = inject("controller.actuate", target=STATE_STEADY)
+        if spec is not None and spec.kind == "error":
+            return False
         srv = self.server
         srv.admission_gate.set_gate_level(1.0, retry_after=self.cfg.retry_after)
         srv.eval_broker.set_shedding(False)
@@ -271,6 +275,9 @@ class OverloadController:
         return True
 
     def _actuate_gating(self, reason: str) -> bool:
+        spec = inject("controller.actuate", target=STATE_GATING)
+        if spec is not None and spec.kind == "error":
+            return False
         srv = self.server
         srv.admission_gate.set_gate_level(
             self.cfg.gate_factors[1], retry_after=self.cfg.retry_after
@@ -282,6 +289,9 @@ class OverloadController:
         return True
 
     def _actuate_shedding(self, reason: str) -> bool:
+        spec = inject("controller.actuate", target=STATE_SHEDDING)
+        if spec is not None and spec.kind == "error":
+            return False
         c = self.cfg
         srv = self.server
         srv.admission_gate.set_gate_level(

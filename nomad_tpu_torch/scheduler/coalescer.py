@@ -48,6 +48,17 @@ re-lays every row over the surviving shards and the mesh drops the lost
 node shard's devices; a result scored against an older layout maps its
 rows through ``NodeMatrix.translate_rows``.
 
+The chaos seams (``chaos/injector.py``): ``coalescer.dispatch`` before a
+sealed batch's launch (a delay point); ``shard.partition`` (``dark``: a
+home shard's nodes turn ineligible) and ``shard.loss`` (``lost``: the
+shard is evacuated and this launch scores the re-homed layout on the
+survivors' mesh) right after a dispatch's matrix sync; ``device.wedge``
+and ``device.slow`` on the resolver's wait.  A device seam holds the
+ticket's wait for a synthetic time (past every watchdog bound, or into
+the slow band) while the kernels run and return their real result; a
+wedged ticket is abandoned as a real one is.  With no injector installed
+each seam is the injector's ``None`` check.
+
 Because overlapped dispatches read a matrix that plans committed during
 their flight may mutate, each ticket records ``matrix.version`` at launch;
 a mismatch at resolve time counts into ``stale_dispatches``.  Correctness
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..chaos import inject
 from ..device import resolve_device, upload
 from ..obs.breaker import (
     STALL_OK,
@@ -260,6 +272,9 @@ class DeviceCoalescer:
         self._pre_evac_device_shards: Optional[int] = None
         self._pre_evac_devices: Optional[list] = None
         self._evac_batch: Optional[int] = None
+        # Shards darkened by the shard.partition chaos seam: shard ->
+        # the node ids it marked ineligible (heal_shard_partitions).
+        self._dark_shards: Dict[int, List[str]] = {}
         self.max_lanes = max_lanes
         self.scan_length = scan_length or PLACEMENT_CHUNK
         self.linger_s = linger_s
@@ -412,6 +427,8 @@ class DeviceCoalescer:
                 return
             if not batch:
                 continue
+            inject("coalescer.dispatch", lanes=len(batch))
+            trace.event("seam.coalescer.dispatch", lanes=len(batch))
             # Wait for a pipeline slot BEFORE launching: the permit bounds
             # overlapping dispatches (and how stale an in-flight read can
             # get).  Requests arriving meanwhile coalesce into the next
@@ -669,6 +686,44 @@ class DeviceCoalescer:
             self.metrics.incr("nomad.coalescer.shard_evacuations")
         return survivors
 
+    def _darken_shard(self) -> None:
+        """Chaos ``shard.partition`` effect (kind 'dark'): mark every node
+        homed on the most-populated shard ineligible — the authoritative-
+        state analog of losing a whole mesh shard.  Deterministic target
+        (highest claimed-row count, lowest index on ties) so seeded
+        schedules replay identically."""
+        counts = self.matrix.shard_row_counts()
+        target = max(range(len(counts)), key=lambda s: (counts[s], -s))
+        ids = self.matrix.shard_nodes(target)
+        for nid in ids:
+            self.matrix.set_eligibility(nid, False)
+        self._dark_shards.setdefault(target, []).extend(ids)
+        trace.event(
+            "seam.shard.partition.dark", shard=target, nodes=len(ids)
+        )
+
+    def heal_shard_partitions(self) -> List[int]:
+        """Re-light every shard darkened by the partition seam; returns the
+        healed shard indices (chaos scenarios check invariants after)."""
+        healed = sorted(self._dark_shards)
+        for _shard, ids in sorted(self._dark_shards.items()):
+            for nid in ids:
+                self.matrix.set_eligibility(nid, True)
+        self._dark_shards.clear()
+        return healed
+
+    def _lose_shard(self) -> bool:
+        """Chaos ``shard.loss`` effect (kind 'lost'): evacuate the
+        most-populated home shard — the same deterministic target rule as
+        _darken_shard.  A dense layout has nothing to evacuate; returns
+        whether a shard was evacuated."""
+        if int(self.matrix.shard_count) <= 1:
+            return False
+        counts = self.matrix.shard_row_counts()
+        target = max(range(len(counts)), key=lambda s: (counts[s], -s))
+        self.evacuate_shard(target)
+        return True
+
     def heal_shard_evacuations(self) -> Optional[int]:
         """Re-admit evacuated shards: a full re-layout back to the shard
         count before the first evacuation, through the same remap window,
@@ -724,6 +779,19 @@ class DeviceCoalescer:
             }
         return st
 
+    def _sync(self):
+        """The dispatch's matrix copy and the programs that read it:
+        ``(sharded, None, version, fused_fn, staged_fn)`` on a mesh (the
+        matrix stays resident across it: only dirty rows go to the shards
+        that own them), else ``(None, arrays, version, None, None)``."""
+        with DEVICE_LOCK:
+            if self._resolve_sharding() > 1:
+                return (self.matrix.sync_sharded(self._mesh), None,
+                        self.matrix.version, self._sharded_fused_fn,
+                        self._sharded_fn)
+            return (None, self.matrix.sync(self.device),
+                    self.matrix.version, None, None)
+
     def _dispatch(self, batch: List[_Pending]):
         """Launch one fused or staged dispatch; returns (host tensor of the
         packed result, completion event or None on the CPU, matrix version
@@ -731,20 +799,32 @@ class DeviceCoalescer:
         only, at full features, as the reference's staged path (no
         ``features=``); its sharded twin launches every lane, the dead
         ones with all-False host masks, as the reference's does."""
-        sharded = None
-        with DEVICE_LOCK:
-            if self._resolve_sharding() > 1:
-                # The matrix stays resident across the mesh: only dirty
-                # rows go to the shards that own them.
-                sharded = self.matrix.sync_sharded(self._mesh)
-                fused_fn, staged_fn = self._sharded_fused_fn, self._sharded_fn
-                n = sharded.n
-                dev = sharded.mesh.lead
-            else:
-                arrays = self.matrix.sync(self.device)
-                n = int(arrays.used.shape[0])
-                dev = arrays.used.device
-            version = self.matrix.version
+        sharded, arrays, version, fused_fn, staged_fn = self._sync()
+        # Chaos seam: partition an entire matrix shard MID-dispatch — the
+        # copy above was synced before the darkening, so this launch still
+        # places onto the dark shard and the applier's authoritative
+        # re-verify (eligibility-gated) must reject every one of them.
+        fault = inject("shard.partition", shards=int(self.matrix.shard_count),
+                       lanes=len(batch))
+        trace.event("seam.shard.partition", lanes=len(batch))
+        if fault is not None and fault.kind == "dark":
+            self._darken_shard()
+        # Chaos seam: lose an entire matrix shard — kind 'lost' evacuates
+        # it (the matrix re-lays out over the survivors and the mesh drops
+        # the lost shard's devices), and this launch scores the re-homed
+        # layout: the sync above was of the old layout on the old mesh,
+        # so sync again, on the survivors' mesh.
+        loss = inject("shard.loss", shards=int(self.matrix.shard_count),
+                      lanes=len(batch))
+        trace.event("seam.shard.loss", lanes=len(batch))
+        if loss is not None and loss.kind == "lost" and self._lose_shard():
+            sharded, arrays, version, fused_fn, staged_fn = self._sync()
+        if sharded is not None:
+            n = sharded.n
+            dev = sharded.mesh.lead
+        else:
+            n = int(arrays.used.shape[0])
+            dev = arrays.used.device
 
         k = len(batch)
         cw = max(p.class_elig.shape[0] for p in batch)
@@ -841,14 +921,46 @@ class DeviceCoalescer:
         ``(verdict, packed result as numpy or None when wedged, elapsed
         seconds)``.  With no event (the CPU path: the result is already on
         the host) it is ``ok`` at once; otherwise the ticket's event alone
-        is polled (``poll_until``)."""
+        is polled (``poll_until``).  A ticket the device seams hold is not
+        done until its hold has passed, on either path."""
         event = ticket.done_event
-        if event is None:
-            return STALL_OK, ticket.host.numpy(), 0.0
-        verdict, elapsed = poll_until(event.query, deadline, factor)
+        hold = self._chaos_hold(len(ticket.entries), deadline, factor)
+        if hold is None:
+            if event is None:
+                return STALL_OK, ticket.host.numpy(), 0.0
+            done = event.query
+        else:
+            until = time.monotonic() + hold
+
+            def done():
+                return time.monotonic() >= until and (
+                    event is None or event.query())
+        verdict, elapsed = poll_until(done, deadline, factor)
         if verdict == STALL_WEDGED:
             return verdict, None, elapsed
         return verdict, ticket.host.numpy(), elapsed
+
+    @staticmethod
+    def _chaos_hold(lanes: int, deadline: float,
+                    factor: float) -> Optional[float]:
+        """The device seams: a synthetic wedge (the wait is held past every
+        watchdog bound, or for the fault's ``duration``) or a synthetic
+        slowdown (held into the slow band: past the deadline, inside the
+        wedge bound) on one ticket's wait; returns the hold in seconds, or
+        None when no device fault fired."""
+        wedge = inject("device.wedge", lanes=lanes)
+        trace.event("seam.device.wedge", lanes=lanes)
+        slow = None
+        if wedge is None or wedge.kind != "wedge":
+            slow = inject("device.slow", lanes=lanes)
+        trace.event("seam.device.slow", lanes=lanes)
+        if wedge is not None and wedge.kind == "wedge":
+            return (wedge.duration if wedge.duration > 0
+                    else max(deadline * factor * 4.0, 1.0))
+        if slow is not None and slow.kind == "slow":
+            return (slow.duration if slow.duration > 0
+                    else deadline * (1.0 + factor) / 2.0)
+        return None
 
     def _resolve(self, ticket: _Ticket) -> None:
         entries = ticket.entries

@@ -15,8 +15,9 @@ factor driven by the :class:`~..obs.controller.OverloadController`.  A
 submission that outruns its namespace's refill rate raises
 :class:`RateLimitError` with a ``retry_after`` hint computed from the
 bucket's actual deficit (an HTTP layer maps it to ``429 Too Many
-Requests`` + ``Retry-After``).  A copy of the reference package's gate
-without its chaos seam (the injected spurious rejection).
+Requests`` + ``Retry-After``).  A copy of the reference package's gate,
+its ``admission.gate`` chaos seam (an injected spurious rejection)
+included.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from .. import trace
+from ..chaos.injector import inject
 from ..retry import env_float
 from ..structs.types import Job, JobType, Op
 
@@ -242,6 +244,17 @@ class AdmissionGate:
         reports, but nothing is rejected)."""
         if self.rate <= 0:
             return
+        spec = inject("admission.gate", namespace=namespace)
+        if spec is not None and spec.kind == "error":
+            # Spurious 429: the gate rejects a submission it had capacity
+            # for — exercises the client's Retry-After path end to end.
+            trace.event(
+                "seam.admission.gate", namespace=namespace, spurious=True
+            )
+            raise RateLimitError(
+                f"namespace {namespace!r} rejected (injected)",
+                retry_after=self._retry_after,
+            )
         with self._lock:
             bucket = self._buckets.get(namespace)
             if bucket is None:

@@ -25,6 +25,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from .. import trace
+from ..chaos.injector import inject
 from ..structs.types import EvalStatus, EvalTrigger, Evaluation
 
 
@@ -167,6 +168,13 @@ class BlockedEvals:
     def unblock(self, computed_class: str, index: int) -> None:
         """Capacity changed on ``computed_class`` (node registered, alloc
         stopped, drain lifted...). Re-enqueue everything that could now fit."""
+        spec = inject("blocked.unblock", cls=computed_class)
+        if spec is not None and spec.kind == "error":
+            # Capacity wakeup lost: evals stay blocked until the next
+            # capacity event or the leader's periodic unblock sweep.
+            trace.event("seam.blocked.unblock", cls=computed_class,
+                        applied=False)
+            return
         trace.event("seam.blocked.unblock", cls=computed_class, applied=True)
         with self._lock:
             if not self._enabled:

@@ -27,6 +27,7 @@ import time
 from typing import Dict, List, Optional, Set, Tuple
 
 from .. import trace
+from ..chaos.injector import inject
 from ..structs.types import EvalStatus, Evaluation
 
 # Reference: nomad/config.go — EvalNackTimeout / EvalDeliveryLimit defaults.
@@ -236,7 +237,12 @@ class EvalBroker:
     ) -> None:
         """Engage/release shed mode.  Called by OverloadController
         actuator methods (lint O003 holds those to trace + counter
-        emission)."""
+        emission); the chaos seam here lets scenarios lose or slow the
+        actuation itself."""
+        spec = inject("broker.shed", enabled=str(enabled))
+        if spec is not None and spec.kind == "error":
+            trace.event("seam.broker.shed", applied=False)
+            return  # actuation lost — controller re-drives next tick
         trace.event(
             "seam.broker.shed", applied=True, enabled=enabled,
             floor=priority_floor,

@@ -14,7 +14,9 @@ discards entries whose deadline no longer matches the authoritative map.
 
 The TTL jitter draws from the ``random.Random`` the owner passes in
 (``ServerConfig.heartbeat_seed`` seeds the server's), so a run's TTLs
-repeat under the same seed.
+repeat under the same seed.  The ``heartbeat.ttl`` chaos seam (kind
+``skew``) arms a deadline other than the TTL it grants, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import threading
 from typing import Callable, Dict, List, Optional, Tuple
 import time
 
+from .. import trace
+from ..chaos import inject
 
 
 class HeartbeatManager:
@@ -72,13 +76,24 @@ class HeartbeatManager:
     def reset_heartbeat(self, node_id: str) -> float:
         """(Re)arm the node's TTL; returns the granted TTL. TTLs are
         jittered to spread thundering herds (heartbeat.go:93)."""
+        # Chaos seam: clock skew.  The server arms a DIFFERENT deadline
+        # than the TTL it grants (duration = skew factor on the armed
+        # side), so a client heartbeating "on time" by its own clock still
+        # expires — the failure mode of drifted hosts.
+        fault = inject("heartbeat.ttl", node=node_id)
+        trace.event("seam.heartbeat.ttl", node=node_id)
+        skew = (
+            fault.duration
+            if fault is not None and fault.kind == "skew" and fault.duration
+            else 1.0
+        )
         with self._lock:
             ttl = self.min_ttl + self._rng.random() * (
                 self.max_ttl - self.min_ttl
             )
             if not self._enabled:
                 return ttl
-            deadline = time.monotonic() + ttl
+            deadline = time.monotonic() + ttl * skew
             self._deadlines[node_id] = deadline
             wake = not self._heap or deadline < self._heap[0][0]
             heapq.heappush(self._heap, (deadline, node_id))

@@ -30,8 +30,10 @@ Writes on non-leaders raise :class:`NotLeaderError` carrying the leader's
 address; ``api.rpc.FailoverRPC`` follows the hint so clients survive
 failovers transparently.
 
-A copy of the reference package's ``server/replication.py`` without the
-``raft.send`` chaos seam (no injector in this package yet).  Differences,
+A copy of the reference package's ``server/replication.py``, its
+``raft.send`` chaos seam included: it fires in :meth:`Replicator._post`,
+once for each message to one peer (``src``/``dst`` in its ctx), so a
+``match={"dst": ...}`` schedule cuts exactly one link.  Differences,
 each for a leader whose followers hold a large state (thousands of nodes,
 whose image takes seconds to install):
 
@@ -73,6 +75,8 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+from .. import trace
+from ..chaos import inject
 from ..retry import Backoff, RetryPolicy, env_float
 
 log = logging.getLogger(__name__)
@@ -332,17 +336,33 @@ class Replicator:
         self, addr: str, path: str, payload: Dict,
         timeout: Optional[float] = None,
     ) -> Dict:
+        # Chaos seam: the partition primitive.  Matching on src/dst cuts
+        # specific links (asymmetric partitions included); sustained drops
+        # on the append path starve followers of heartbeats and force
+        # elections.  "dup" replays an entry append (the PrevSeq check on
+        # the receiver must reject the stale duplicate).  Every post goes
+        # to one peer, so the seam fires once per peer and message.
+        fault = inject("raft.send", path=path, src=self.id, dst=addr)
+        trace.event("seam.raft.send", path=path, dst=addr)
+        if fault is not None and fault.kind == "drop":
+            raise urllib.error.URLError("injected partition")
         data = json.dumps(payload).encode()
         headers = {"Content-Type": "application/json"}
         if self.cluster_secret:
             headers["X-Nomad-Cluster-Secret"] = self.cluster_secret
-        req = urllib.request.Request(
-            addr + path, data=data, method="POST", headers=headers,
-        )
-        with urllib.request.urlopen(
-            req, timeout=timeout or self.rpc_timeout
-        ) as resp:
-            return json.loads(resp.read() or b"{}")
+
+        def post_once() -> Dict:
+            req = urllib.request.Request(
+                addr + path, data=data, method="POST", headers=headers,
+            )
+            with urllib.request.urlopen(
+                req, timeout=timeout or self.rpc_timeout
+            ) as resp:
+                return json.loads(resp.read() or b"{}")
+
+        if fault is not None and fault.kind == "dup":
+            post_once()
+        return post_once()
 
     def _installing(self, addr: str) -> bool:
         t = self._catch_ups.get(addr)

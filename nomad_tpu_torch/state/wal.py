@@ -30,10 +30,11 @@ The multi-voter upgrade path keeps this file: a replicated log would agree
 on the entry sequence first, then feed the same ``(index, op, args)``
 records to the same apply path.
 
-A copy of the reference package's log without its chaos seam (injected
-torn writes and fsync failures, and the poisoned-log state they leave).
-The on-disk format is the same byte for byte, so either package restores
-what the other wrote.
+A copy of the reference package's log, its ``wal.write`` chaos seam
+included (an injected torn write persists a prefix and poisons the log
+until a reopen; an injected fsync failure persists the record and
+reports failure).  The on-disk format is the same byte for byte, so
+either package restores what the other wrote.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import os
 from typing import Any, Iterator, List, Optional, Tuple
 
 from .. import trace
+from ..chaos import inject
 
 LOG_NAME = "wal.jsonl"
 SNAPSHOT_NAME = "snapshot.json"
@@ -50,7 +52,8 @@ SNAPSHOT_NAME = "snapshot.json"
 
 class WALWriteError(OSError):
     """An append did not durably complete — the mutation MUST NOT apply
-    (write-ahead contract)."""
+    (write-ahead contract).  Raised for real I/O failures and injected
+    torn-write/fsync faults alike."""
 
 
 class WriteAheadLog:
@@ -69,6 +72,9 @@ class WriteAheadLog:
         self.snapshot_path = os.path.join(data_dir, SNAPSHOT_NAME)
         self._fh = None
         self.appends_since_snapshot = 0
+        # Set when an injected torn write left a partial tail record;
+        # further appends refuse (see _write) until a reopen/load.
+        self._poisoned = False
         # Per-entry sequence: strictly monotonic across the WAL's lifetime,
         # resumed from the on-disk tail by load().
         self.seq = 0
@@ -144,9 +150,28 @@ class WriteAheadLog:
     def _write(self, entry: dict) -> None:
         line = json.dumps(entry) + "\n"
         fh = self._open()
+        # Chaos seam: a crash can tear the record mid-write (a prefix
+        # reaches the platter, no newline) or the disk can fail the fsync
+        # after a complete buffered write.  Both must surface as failed
+        # appends so the write-ahead contract (fail the mutation, never
+        # apply unjournaled state) is exercised end to end.
+        if self._poisoned:
+            # A torn write left a partial record at the tail; appending
+            # after it would corrupt the log MID-file (unrecoverable at
+            # load) instead of at the tail (dropped as a torn final
+            # append).  The owning process must restart and re-load.
+            raise WALWriteError("log poisoned by earlier torn write")
+        fault = inject("wal.write", op=entry.get("op", ""))
         trace.event("seam.wal.write", op=entry.get("op", ""))
+        if fault is not None and fault.kind == "torn":
+            fh.write(line[: max(1, len(line) // 2)])
+            fh.flush()
+            self._poisoned = True
+            raise WALWriteError("injected torn write")
         fh.write(line)
         fh.flush()
+        if fault is not None and fault.kind == "fsync_error":
+            raise WALWriteError("injected fsync failure")
         if self.fsync:
             try:
                 os.fsync(fh.fileno())

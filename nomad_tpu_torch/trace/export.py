@@ -3,10 +3,9 @@
 ``chrome_trace`` renders records in the Chrome trace-event JSON format
 (``ph: "X"`` complete events, microsecond timestamps) — load the file at
 https://ui.perfetto.dev or chrome://tracing. ``dump_flight_record``
-writes one with the dump's reason; the SLO observatory calls it on a
-breach.  A copy of the reference package's ``trace/export.py`` without
-the chaos seed in the dump's metadata: this package has no chaos
-injector yet, so a dump records no seed.
+writes one with the dump's reason and the active chaos seed; the SLO
+observatory calls it on a breach, the chaos invariant checker on a
+violation.  A copy of the reference package's ``trace/export.py``.
 """
 
 from __future__ import annotations
@@ -84,6 +83,16 @@ def chrome_trace(
     }
 
 
+def _chaos_seed() -> Optional[int]:
+    try:
+        from ..chaos.injector import active
+
+        inj = active()
+        return getattr(inj, "seed", None) if inj is not None else None
+    except Exception:
+        return None
+
+
 def dump_flight_record(
     path: Optional[str] = None,
     reason: str = "manual",
@@ -91,12 +100,16 @@ def dump_flight_record(
 ) -> str:
     """Write the flight recorder to a Chrome-trace JSON file and return
     its path (under :func:`trace_dir` unless ``path`` is given).  Metadata
-    carries the dump reason, the time, the pid and ``extra``."""
+    carries the dump reason, the time, the pid, the active chaos seed (so
+    a postmortem can be replayed from it) and ``extra``."""
     meta: Dict[str, Any] = {
         "reason": reason,
         "dumped_at": time.time(),
         "pid": os.getpid(),
     }
+    seed = _chaos_seed()
+    if seed is not None:
+        meta["chaos_seed"] = seed
     if extra:
         meta.update(extra)
     doc = chrome_trace(metadata=meta)

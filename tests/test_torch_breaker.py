@@ -7,8 +7,10 @@
   and seeded random sequences), and ``BreakerConfig.from_env`` reads the
   same knobs;
 * the coalescer's pipeline under a wedged wait (its ``_wait_fetch``
-  replaced, since the port has no chaos seams): the wedged ticket's lane
-  fails with ``DeviceWedgedError``, the others resolve; an open breaker
+  replaced by a wait on an event the test holds; the seeded
+  ``device.wedge`` seam is in ``test_torch_chaos_dispatch.py``): the
+  wedged ticket's lane fails with ``DeviceWedgedError``, the others
+  resolve; an open breaker
   refuses dispatches with ``DeviceBreakerOpenError`` and launches
   nothing; shutdown completes every future, also with a wait that never
   ends;

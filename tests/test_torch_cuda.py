@@ -964,3 +964,118 @@ def test_usage_and_plan_fit_wrappers_refuse_bad_operands(cuda):
             with pytest.raises(error):
                 k.verify_plan_fit(other, *ins)
     assert (k.sharded_usage.launches, k.verify_plan_fit.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The chaos seams on the card
+# ---------------------------------------------------------------------------
+
+
+def chaos_inputs(m, job):
+    from nomad_tpu_torch.chaos.scenarios import _coalescer_inputs
+
+    return _coalescer_inputs(m, job)
+
+
+def chaos_env(monkeypatch, **knobs):
+    for name, value in dict({"NOMAD_TPU_DEVICE_DEADLINE_MS": "120",
+                             "NOMAD_TPU_DEVICE_COLD_SCALE": "1"},
+                            **knobs).items():
+        monkeypatch.setenv(name, value)
+
+
+@pytest.mark.cuda
+def test_seamed_wedge_and_slow_tickets_on_the_card(cuda, monkeypatch):
+    """A ``device.slow`` ticket is held into the slow band and its real
+    result used; a ``device.wedge`` ticket is abandoned past the bound:
+    its lane raises ``DeviceWedgedError``, the breaker trips, and the
+    next dispatch is refused with nothing launched.  The kernels ran for
+    both, and the used result equals the plain version's."""
+    from nomad_tpu_torch.chaos import FaultSpec, injected
+    from nomad_tpu_torch.obs.breaker import (
+        DeviceBreakerOpenError,
+        DeviceWedgedError,
+    )
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+
+    chaos_env(monkeypatch, NOMAD_TPU_DEVICE_PROBATION="600")
+    m, m_cpu = cluster("cuda"), cluster("cpu")
+    job = mock.job()
+    coal = DeviceCoalescer(m, max_lanes=1, linger_s=0.0, pipeline_depth=1,
+                           device="cuda")
+    plain = DeviceCoalescer(m_cpu, max_lanes=1, linger_s=0.0,
+                            pipeline_depth=1, device="cpu")
+    coal.start()
+    plain.start()
+    try:
+        want = plain.place(**chaos_inputs(m_cpu, job))
+        k.reset_counts()
+        with injected(3, [FaultSpec("device.slow", "slow", at_step=1),
+                          FaultSpec("device.wedge", "wedge", at_step=2,
+                                    duration=0.6)]) as inj:
+            slow = coal.place(**chaos_inputs(m, job))
+            launched = k.fused_place.launches
+            with pytest.raises(DeviceWedgedError) as ei:
+                coal.place(**chaos_inputs(m, job))
+            assert k.fused_place.launches == launched + 1
+            with pytest.raises(DeviceBreakerOpenError):
+                coal.place(**chaos_inputs(m, job))
+            assert k.fused_place.launches == launched + 1
+        assert [(f.seam, f.kind) for f in inj.log] == [
+            ("device.slow", "slow"), ("device.wedge", "wedge")]
+        np.testing.assert_array_equal(slow.rows, want.rows)
+        assert ei.value.elapsed_s > ei.value.deadline_s > 0
+        brief = coal.breaker.brief()
+        assert (brief["slow"], brief["trips"], brief["breaker"],
+                brief["degraded_dispatches"]) == (1, 1, "open", 1)
+        assert coal.wedged_dispatches == 1
+        assert k.place_lanes.calls == 0 and k.verify_lanes.calls == 0
+    finally:
+        coal.stop()
+        plain.stop()
+
+
+@pytest.mark.cuda
+def test_shard_loss_mid_dispatch_places_like_plain(cuda, monkeypatch):
+    """``shard.loss`` mid-dispatch on four virtual node shards of the card
+    (``["cuda:0"] * 8``: two batch rows by four node shards): the
+    in-flight placement runs ``sharded_place`` on the survivors' mesh and
+    equals the plain version's on the same survivor layout (the same
+    schedule on ``["cpu"] * 8``)."""
+    from nomad_tpu_torch.chaos import FaultSpec, injected
+    from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+
+    chaos_env(monkeypatch)
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        m = NodeMatrix(capacity=512, device=dev)
+        m.set_shard_count(4)
+        for i in range(N_NODES):
+            node = mock.node()
+            node.id = node.name = f"node-{i:03d}"
+            node.resources.cpu = 2000 + 17 * i
+            m.upsert_node(node)
+        coal = DeviceCoalescer(m, max_lanes=2, linger_s=0.0,
+                               pipeline_depth=1, device=[dev] * 8)
+        coal.start()
+        try:
+            coal.place(**chaos_inputs(m, mock.job()))
+            k.reset_counts()
+            with injected(5, [FaultSpec("shard.loss", "lost",
+                                        count=1)]) as inj:
+                got = coal.place(**chaos_inputs(m, mock.job()))
+            launches = (k.sharded_place.launches,
+                        k.sharded_place_plain.calls)
+        finally:
+            coal.stop()
+        assert [(f.seam, f.kind) for f in inj.log] == [("shard.loss", "lost")]
+        out[dev] = (got.rows, got.fit_verified, m.shard_count,
+                    m.shard_row_counts(), dict(m.row_of), launches,
+                    coal._mesh.shape)
+    card, cpu = out["cuda:0"], out["cpu"]
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_array_equal(card[1], cpu[1])
+    assert card[2:5] == cpu[2:5] and card[2] == 3
+    assert card[6] == cpu[6] == (2, 3)
+    assert card[5][0] > 0 and card[5][1] == 0  # the kernel, no plain
+    assert cpu[5][0] == 0 and cpu[5][1] > 0

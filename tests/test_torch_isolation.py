@@ -44,7 +44,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import nomad_tpu_torch.structs.serde, nomad_tpu_torch.retry\n"
         "import nomad_tpu_torch.api.agent, nomad_tpu_torch.api.http_server\n"
         "import nomad_tpu_torch.api.rpc, nomad_tpu_torch.api.config_file\n"
-        "import nomad_tpu_torch.cli\n"
+        "import nomad_tpu_torch.cli, nomad_tpu_torch.chaos\n"
+        "import nomad_tpu_torch.chaos.scenarios\n"
+        "import nomad_tpu_torch.chaos.wal_tools\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -59,6 +61,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert "nomad_tpu_torch.api.http_server" in loaded
     assert "nomad_tpu_torch.api.rpc" in loaded
     assert "nomad_tpu_torch.cli" in loaded
+    assert "nomad_tpu_torch.chaos.injector" in loaded
+    assert "nomad_tpu_torch.chaos.scenarios" in loaded
     bad = [m for m in loaded if forbidden(m)]
     assert bad == []
 

@@ -798,19 +798,28 @@ def loadfile_order(items):
     return sorted(counts, key=lambda path: -counts[path])
 
 
+# The port's files that run three-agent clusters or the chaos scenarios.
+CLUSTER_FILES = ("test_torch_replication_cluster.py",
+                 "test_torch_chaos_cluster.py",
+                 "test_torch_chaos_overload.py",
+                 "test_torch_chaos_device.py",
+                 "test_torch_chaos_host.py")
+
+
 def test_clusters_are_handed_out_well_after_the_chaos_scenarios(request):
     """``--dist loadfile`` hands out the files with the most tests first.
     ``tests/test_chaos.py``'s flash-crowd case failed in each of four
     whole runs in which the port's cluster tests were handed out 12 files
     after it, and passed with 30 files between.  In a run that collects
-    both files, CHAOS_GAP files must lie between them; a run of fewer
-    files holds nothing to check."""
+    ``test_chaos.py`` and any of ``CLUSTER_FILES``, CHAOS_GAP files must
+    lie between it and each of them; a run of fewer files holds nothing
+    to check."""
     order = loadfile_order(request.session.items)
     chaos = [p for p in order if p.endswith("/test_chaos.py")]
-    here = [p for p in order
-            if p.endswith("/test_torch_replication_cluster.py")]
-    if chaos and here:
-        gap = order.index(here[0]) - order.index(chaos[0]) - 1
-        assert gap >= CHAOS_GAP, (
-            f"{here[0]} is handed out {gap} files after {chaos[0]}: run "
-            f"clusters from a file with fewer tests (ROADMAP R2)")
+    for name in CLUSTER_FILES:
+        here = [p for p in order if p.endswith("/" + name)]
+        if chaos and here:
+            gap = order.index(here[0]) - order.index(chaos[0]) - 1
+            assert gap >= CHAOS_GAP, (
+                f"{here[0]} is handed out {gap} files after {chaos[0]}: "
+                f"run clusters from a file with fewer tests (ROADMAP R2)")

@@ -415,3 +415,57 @@ def _same(a, b, path, scores):
         assert abs(a - b) <= ATOL + RTOL * abs(a), f"{path}: {a} vs {b}"
         return
     assert a == b, f"{path}: jax {a!r} vs port {b!r}"
+
+
+# The chaos scenarios' report keys: the reference's
+# (``nomad_tpu/chaos/scenarios.py``) and the ones the port adds, each a
+# deliberate difference listed in ROADMAP's "Drops".
+CHAOS_REPORT_KEYS = {
+    "leader_kill_mid_apply": {"pre_kill_evals", "post_kill_eval"},
+    "wal_truncation_sweep": {"stride", "cuts"},
+    "partition_then_heal": {"drops"},
+    "wedged_driver_during_drain": set(),
+    "flash_crowd_flapping_partition": {
+        "pre_rate", "state_pre_crowd", "admitted", "rejected",
+        "wave2_admitted", "wave2_rejected", "engaged", "time_to_engage_s",
+        "fast_window_s", "state_under_load", "crowd_drained",
+        "overload_rate", "goodput_ratio", "total_shed", "recovered",
+        "flips", "flips_suppressed", "flip_budget"},
+    "breach_while_leader_killed": {
+        "admitted", "rejected", "engaged_pre_kill", "state_pre_kill",
+        "shed_pre_kill", "old_leader_released", "post_kill_eval",
+        "new_leader_state_initial", "recovered", "new_leader_flips",
+        "flip_budget"},
+    "wedged_dispatch_recovers": {
+        "pre_rate", "tripped", "wedged_dispatches", "degraded_dispatches",
+        "trips", "crowd_drained", "post_rate", "recovered",
+        "recovered_rate", "throughput_ratio"},
+    "device_slow_flapping": {
+        "placed", "slow_recorded", "trips", "flips", "flips_suppressed",
+        "flip_budget", "final_state"},
+    "shard_loss_evacuation": {
+        "pre_shards", "pre_counts", "post_shards", "post_counts",
+        "evacuations", "placed_row", "parity_mismatches",
+        "restored_shards"},
+}
+CHAOS_PORT_KEYS = {
+    "wedged_dispatch_recovers": {
+        "crowd_placed", "placed_after_close", "crowd_to_trip_s",
+        "trip_to_close_s", "crowd_to_placed_s"},
+    "device_slow_flapping": {"refused"},
+    "shard_loss_evacuation": {
+        "pre_placed_row", "evacuation_ms", "reupload_bytes",
+        "resident_mismatches"},
+}
+
+
+def assert_chaos_report(report):
+    """No violation, and the reference's report keys plus the port's
+    listed additions, no other."""
+    name = report["name"]
+    assert report["violations"] == [], report
+    want = ({"name", "seed", "violations"} | CHAOS_REPORT_KEYS[name]
+            | CHAOS_PORT_KEYS.get(name, set()))
+    if name != "breach_while_leader_killed":  # installs no injector
+        want.add("faults")
+    assert set(report) == want, set(report) ^ want
