@@ -372,6 +372,28 @@ Phases:
    reference's node counts: phase 13 holds a failover at 10,000 nodes,
    and registering 10,000 nodes through a replicated leader (a write's
    quorum is 7-16 ms) would take minutes.
+16. cache, counters and sanitizer — 16a the encoded-matrix cache: a
+   server's 10,000 registered nodes (capacity 10240, usage pre-loaded,
+   the cold build timed) written with ``NodeMatrix.save_encoded`` and
+   read into a fresh matrix with ``load_encoded``: the host arrays equal
+   the built ones bit for bit, and the first ``sync("cuda")`` is one full
+   upload whose device columns equal the built matrix's bit for bit.  A
+   second server over a load of the same file, its nodes registered onto
+   the loaded rows, places the 64-job count-2 burst: 128 fitting allocs
+   through ``fused_place`` and ``allocs_fit_verify``, no plain version.
+   The same again with ``shard_count`` 4 on ``["cuda"] * 8`` (four node
+   shards): ``sharded_place`` runs, every node keeps its home shard and
+   the resident copy equals a from-scratch ``shard_matrix_arrays`` bit for
+   bit.  16b the counters over both bursts: ``topk_host_bytes_total`` is
+   the sum of the tickets' result copies, ``operand_bytes_total`` the sum
+   of the uploads the dispatches' shapes call for, ``verify_conflicts``
+   the VERIFIED 0.0 picks of the results the lanes got back,
+   ``feature_recompiles`` the widenings; the four gauges of
+   ``/v1/metrics`` equal the counters, and ``top``'s shard line on the
+   x4 server reads the non-zero result bytes.  16c 15a's seeded wedge at
+   10,000 nodes inside ``tsan.sanitized()``: the store, matrix,
+   coalescer and broker instrumented, the kernels launched throughout,
+   no plain version, zero race reports.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -381,6 +403,7 @@ when there is no CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -7479,6 +7502,391 @@ def phase_chaos(card: str, results: dict) -> None:
         f" (card: {card})")
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the encoded-matrix cache, the coalescer's counters and
+# TSan-lite
+# ----------------------------------------------------------------------
+
+CACHE_DEVICE = "cuda"  # the card the phase's servers and matrices use
+CACHE_MESH = 8  # [CACHE_DEVICE] * 8: two batch rows by four node shards
+
+
+def host_bits_equal(a: dict, b: dict, label: str) -> None:
+    """Two matrices' host arrays equal field by field, bit for bit (NaN
+    columns included), with the same types and shapes."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: fields {sorted(a)} vs {sorted(b)}")
+    for f in a:
+        if (a[f].dtype != b[f].dtype or a[f].shape != b[f].shape
+                or a[f].tobytes() != b[f].tobytes()):
+            raise AssertionError(f"{label}: host field {f} differs")
+
+
+def device_bits_equal(got, want, label: str) -> None:
+    """Two ``DeviceArrays`` of tensors equal field by field, bit for bit."""
+    from nomad_tpu_torch.state.matrix import DeviceArrays
+
+    for f in DeviceArrays._fields:
+        if not tensors_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: device field {f} differs")
+
+
+def fused_operand_bytes(co, sharded: bool) -> int:
+    """The bytes one fused dispatch of ``co`` uploads, from its shapes:
+    the (max_lanes, ...) staging buffers and the packed requests; a
+    sharded dispatch uploads the verify's request floats, delta rows and
+    values and lane mask once more."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.scheduler.coalescer import MAX_DELTA_ROWS
+
+    lanes = co.max_lanes
+    n = sum(a.nbytes for a in co._stage.values())
+    n += lanes * 4 * (k.REQ_INT_WIDTH + k.REQ_FLOAT_WIDTH)
+    if sharded:
+        n += lanes * (4 * k.REQ_FLOAT_WIDTH + 4 * MAX_DELTA_ROWS
+                      + 12 * MAX_DELTA_ROWS + 1)
+    return n
+
+
+class CounterWatch:
+    """While open, records for each dispatch of the coalescer ``co`` the
+    bytes its uploads must move (``fused_operand_bytes``), the bytes of
+    its ticket's result copy, and, as each ticket resolves, the VERIFIED
+    0.0 picks of the outcomes its lanes get back."""
+
+    def __init__(self, co, sharded: bool):
+        self.co, self.sharded = co, sharded
+        self.dispatches = self.operand = self.result = self.conflicts = 0
+
+    def __enter__(self):
+        from nomad_tpu_torch.scheduler.coalescer import DeviceCoalescer
+
+        dispatch, resolve = DeviceCoalescer._dispatch, DeviceCoalescer._resolve
+        watch = self
+
+        def watched_dispatch(co, batch):
+            out = dispatch(co, batch)
+            if co is watch.co:
+                watch.dispatches += 1
+                watch.result += out[0].numel() * out[0].element_size()
+                watch.operand += fused_operand_bytes(co, watch.sharded)
+            return out
+
+        def watched_resolve(co, ticket):
+            resolve(co, ticket)
+            if co is watch.co:
+                for p in ticket.entries:
+                    fv = p.outcome.fit_verified if p.outcome else None
+                    if fv is not None:
+                        watch.conflicts += int((~fv).sum())
+
+        self._patch = _Patched(
+            (DeviceCoalescer, "_dispatch", watched_dispatch),
+            (DeviceCoalescer, "_resolve", watched_resolve))
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+
+COUNTERS = ("operand_bytes_total", "verify_conflicts", "feature_recompiles",
+            "topk_host_bytes_total")
+GAUGES = {"operand_bytes_total": "nomad.kernel.operand_bytes_total",
+          "verify_conflicts": "nomad.kernel.verify_conflicts",
+          "feature_recompiles": "nomad.kernel.feature_recompiles",
+          "topk_host_bytes_total": "nomad.topk.host_bytes_total"}
+
+
+def check_cache_launches(launches: dict, label: str, kernels) -> None:
+    """Each of ``kernels`` launched on the path and no plain version (nor
+    the staged kernel) ran."""
+    if any(launches[name] <= 0 for name in kernels):
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    if launches["plain"] or launches["place_batch"]:
+        raise AssertionError(f"{label}: a plain version or the staged "
+                             f"kernel ran: {launches}")
+
+
+def cache_burst(srv, label: str, sharded: bool, kernels) -> dict:
+    """The 64-job count-2 burst on ``srv`` under a ``CounterWatch``: 128
+    fitting allocs, the path's kernels launched, and each counter's
+    growth equal to what the watch saw; the gauges equal the counters."""
+    from nomad_tpu_torch.ops import kernels as k
+
+    co = srv.coalescer
+    before = {c: getattr(co, c) for c in COUNTERS}
+    k.reset_counts()
+    with CounterWatch(co, sharded) as watch:
+        evals, elapsed = burst(srv, [service_job(i)
+                                     for i in range(SERVER_JOBS)])
+        quiet_s = wait_quiet(srv, label)
+    launches = chaos_launches(k)
+    check_cache_launches(launches, label, kernels)
+    counts = check_burst(srv, evals, label)
+    grew = {c: getattr(co, c) - before[c] for c in COUNTERS}
+    want = {"operand_bytes_total": watch.operand,
+            "topk_host_bytes_total": watch.result,
+            "verify_conflicts": watch.conflicts}
+    for c, v in want.items():
+        if grew[c] != v:
+            raise AssertionError(f"{label}: {c} grew {grew[c]}, the "
+                                 f"dispatches show {v}")
+    if not watch.dispatches or not grew["topk_host_bytes_total"]:
+        raise AssertionError(f"{label}: no dispatch watched")
+    if co.feature_recompiles < 1:
+        raise AssertionError(f"{label}: the features never ratcheted")
+    snap = srv.metrics.snapshot()
+    for c, g in GAUGES.items():
+        if snap.get(g) != getattr(co, c):
+            raise AssertionError(f"{label}: gauge {g} = {snap.get(g)}, "
+                                 f"counter {getattr(co, c)}")
+    return {"evals_per_s": SERVER_JOBS / elapsed, "allocs": counts["allocs"],
+            "burst_s": elapsed, "quiet_s": quiet_s,
+            "retried": counts["retried"], "dispatches": watch.dispatches,
+            "launches": launches, "grew": grew,
+            "counters": {c: getattr(co, c) for c in COUNTERS}}
+
+
+def nodes_in_row_order(srv) -> list:
+    m = srv.matrix
+    return [srv.store.node_by_id(m.node_of[r]) for r in sorted(m.node_of)]
+
+
+def serve_loaded(path: str, nodes, devices, label: str, steps: dict):
+    """A started server whose matrix is loaded from ``path`` before its
+    nodes are registered onto the loaded rows (a registration rewrites a
+    known node's row with the same values and keeps its usage)."""
+    from nomad_tpu_torch.server.server import Server
+
+    srv = Server(server_config(), device=devices)
+    if not srv.matrix.load_encoded(path):
+        srv.shutdown()
+        raise AssertionError(f"{label}: load_encoded refused {path}")
+    host0 = {f: a.copy() for f, a in srv.matrix.snapshot_host().items()}
+    srv.start()
+    t0 = time.perf_counter()
+    for node in nodes:
+        srv.register_node(copy.deepcopy(node))
+    steps[f"{label} registrations"] = time.perf_counter() - t0
+    host_bits_equal(srv.matrix.snapshot_host(), host0,
+                    f"{label}: registrations onto the loaded rows")
+    return srv
+
+
+def cache_dense(card: str, tmp: str, out: dict):
+    """16a and 16b on one device; returns the built server's nodes in
+    row order and the encoded file's path."""
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.state.matrix import NodeMatrix
+
+    steps = out.setdefault("steps_s", {})
+    built = Server(server_config(), device=CACHE_DEVICE)
+    built.start()
+    try:
+        t0 = time.perf_counter()
+        register_cluster(built, "16a cold build")
+        out["cold_build_s"] = time.perf_counter() - t0
+        nodes = nodes_in_row_order(built)
+        path = os.path.join(tmp, "matrix.npz")
+        t0 = time.perf_counter()
+        built.matrix.save_encoded(path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        m = NodeMatrix(capacity=16, device=CACHE_DEVICE)
+        t0 = time.perf_counter()
+        if not m.load_encoded(path):
+            raise AssertionError("16a: load_encoded refused its own file")
+        out["load_s"] = time.perf_counter() - t0
+        host_bits_equal(m.snapshot_host(), built.matrix.snapshot_host(),
+                        "16a: loaded host arrays")
+        if m.row_of != built.matrix.row_of:
+            raise AssertionError("16a: loaded rows hold other nodes")
+        full0, bytes0 = m.full_uploads, m.upload_bytes_total
+        _sync()
+        t0 = time.perf_counter()
+        loaded = m.sync(CACHE_DEVICE)
+        _sync()
+        out["first_sync_ms"] = (time.perf_counter() - t0) * 1e3
+        out["first_sync_bytes"] = m.upload_bytes_total - bytes0
+        if m.full_uploads != full0 + 1 or m.scatter_syncs:
+            raise AssertionError(f"16a: the first sync was not one full "
+                                 f"upload ({m.full_uploads - full0} full, "
+                                 f"{m.scatter_syncs} scatters)")
+        if out["first_sync_bytes"] != sum(
+                a.nbytes for a in m.snapshot_host().values()):
+            raise AssertionError("16a: the first sync moved other bytes")
+        device_bits_equal(loaded, built.matrix.run_on_device(
+            lambda: built.matrix.sync(CACHE_DEVICE)), "16a: first sync")
+    finally:
+        t0 = time.perf_counter()
+        built.shutdown()
+        steps["16a built shutdown"] = time.perf_counter() - t0
+
+    srv = serve_loaded(path, nodes, CACHE_DEVICE, "16a dense", steps)
+    try:
+        out["dense"] = cache_burst(srv, "16a dense burst", False,
+                                   ("fused_place", "allocs_fit_verify"))
+        if srv.matrix.full_uploads != 1:
+            raise AssertionError(f"16a: {srv.matrix.full_uploads} full "
+                                 f"uploads on the loaded server")
+    finally:
+        t0 = time.perf_counter()
+        srv.shutdown()
+        steps["16a dense shutdown"] = time.perf_counter() - t0
+    return nodes, path
+
+
+def cache_sharded(card: str, tmp: str, nodes, path: str, out: dict) -> None:
+    """16a and 16b with ``shard_count`` 4 on four node shards of the
+    card, and ``top``'s shard line."""
+    from nomad_tpu_torch.obs.top import render
+    from nomad_tpu_torch.parallel.sharding import shard_matrix_arrays
+    from nomad_tpu_torch.state.matrix import (
+        DEVICE_LOCK, DeviceArrays, NodeMatrix,
+    )
+
+    m = NodeMatrix(capacity=16, device=CACHE_DEVICE)
+    if not m.load_encoded(path):
+        raise AssertionError("16a x4: load_encoded refused the dense file")
+    m.relayout_shards(4)
+    path4 = os.path.join(tmp, "matrix4.npz")
+    m.save_encoded(path4)
+    counts = m.shard_row_counts()
+    homes = {nid: m.home_shard(r) for nid, r in m.row_of.items()}
+    steps = out.setdefault("steps_s", {})
+    srv = serve_loaded(path4, nodes, [CACHE_DEVICE] * CACHE_MESH, "16a x4",
+                       steps)
+    try:
+        if srv.matrix.shard_count != 4 or srv.matrix.full_uploads:
+            raise AssertionError("16a x4: the loaded matrix lost its shards "
+                                 "or synced before the first dispatch")
+        out["x4"] = cache_burst(
+            srv, "16a x4 burst", True,
+            ("sharded_place", "allocs_fit_verify_window"))
+        mx = srv.matrix
+        if mx.shard_count != 4 or srv.coalescer._mesh.shape[1] != 4:
+            raise AssertionError(f"16a x4: {mx.shard_count} shards, mesh "
+                                 f"{srv.coalescer._mesh.shape}")
+        moved = [nid for nid, s in homes.items()
+                 if mx.home_shard(mx.row_of[nid]) != s]
+        if moved or mx.shard_row_counts() != counts:
+            raise AssertionError(f"16a x4: {len(moved)} nodes left their "
+                                 f"home shard")
+        with DEVICE_LOCK:
+            resident = mx.sync_sharded(srv.coalescer._mesh)
+            with mx._host_lock:
+                host = DeviceArrays(**{
+                    f: mx.snapshot_host()[f].copy()
+                    for f in DeviceArrays._fields})
+            fresh = shard_matrix_arrays(srv.coalescer._mesh, host)
+        for i, row in enumerate(resident.shards):
+            for j, sh in enumerate(row):
+                device_bits_equal(sh, fresh.shards[i][j],
+                                  f"16a x4 resident shard ({i}, {j})")
+        if mx.full_uploads != 1:
+            raise AssertionError(f"16a x4: {mx.full_uploads} full lay-outs")
+        lines = [ln for ln in render(srv.metrics.snapshot(), None,
+                                     None).splitlines()
+                 if ln.startswith("shards")]
+        got = int(lines[0].rsplit("topk host bytes", 1)[1]) if lines else 0
+        if got <= 0 or got != srv.coalescer.topk_host_bytes_total:
+            raise AssertionError(f"16b: top's shard line {lines} against "
+                                 f"{srv.coalescer.topk_host_bytes_total}")
+        out["top_shard_line"] = lines[0]
+    finally:
+        t0 = time.perf_counter()
+        srv.shutdown()
+        steps["16a x4 shutdown"] = time.perf_counter() - t0
+
+
+def cache_sanitized(card: str, out: dict) -> None:
+    """16c: 15a's seeded wedge at 10,000 nodes under TSan-lite."""
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.lint import tsan
+    from nomad_tpu_torch.ops import kernels as k
+
+    kinds = []
+    instrument = tsan.instrument
+
+    def watched(kind, obj):
+        kinds.append(kind)
+        return instrument(kind, obj)
+
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-tsan-")
+    try:
+        k.reset_counts()
+        with _Patched((tsan, "instrument", watched)), tsan.sanitized():
+            t0 = time.perf_counter()
+            r = SCENARIOS["wedged_dispatch_recovers"](
+                11, tmp, crowd=CHAOS_CROWD, device=CACHE_DEVICE,
+                n_nodes=N_NODES)
+            seconds = time.perf_counter() - t0
+            races = tsan.reports()
+        launches = chaos_launches(k)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_chaos(r, launches, "16c")
+    if not {"store", "matrix", "coalescer", "broker"} <= set(kinds):
+        raise AssertionError(f"16c: instrumented only {sorted(set(kinds))}")
+    if races:
+        raise AssertionError("16c: race reports:\n" + "\n".join(
+            f"{x['label']} {x['op']} in {x['thread']} held={x['held']}"
+            for x in races))
+    if not r["tripped"] or r["crowd_placed"] != CHAOS_CROWD:
+        raise AssertionError(f"16c: the wedge drill did not trip and place "
+                             f"its crowd: {r}")
+    out["sanitized"] = {"seconds": seconds, "reports": 0,
+                        "instrumented": sorted(set(kinds)),
+                        "launches": launches}
+    log(f"16c wedged_dispatch_recovers under TSan-lite ({N_NODES} nodes): "
+        f"{seconds:.1f} s, 0 race reports, instrumented "
+        f"{sorted(set(kinds))}, launches {launches} (card: {card})")
+
+
+def phase_cache(card: str, results: dict) -> None:
+    """Phase 16: the encoded-matrix cache, the counters and TSan-lite."""
+    out = results.setdefault("cache", {})
+    tmp = tempfile.mkdtemp(prefix="nomad-smoke-cache-")
+    timed = {}
+    try:
+        t0 = time.perf_counter()
+        nodes, path = cache_dense(card, tmp, out)
+        timed["16a/b dense"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cache_sharded(card, tmp, nodes, path, out)
+        timed["16a/b x4"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d, x4 = out["dense"], out["x4"]
+    log(f"16a cache ({N_NODES} nodes, capacity {CAPACITY}): cold build "
+        f"{out['cold_build_s']:.3f} s, save {out['save_s']:.3f} s "
+        f"({out['file_bytes']} bytes), load {out['load_s']:.3f} s, first "
+        f"sync {out['first_sync_ms']:.3f} ms ({out['first_sync_bytes']} "
+        f"bytes, one full upload, bit for bit); bursts over the loaded "
+        f"matrix: dense {d['evals_per_s']:.1f} evals/s, x4 "
+        f"{x4['evals_per_s']:.1f} evals/s, {d['allocs']} and "
+        f"{x4['allocs']} allocs (card: {card})")
+    for label, b in (("dense", d), ("x4", x4)):
+        log(f"16b counters ({label}): grew {b['grew']} over "
+            f"{b['dispatches']} dispatches, equal to the dispatches' "
+            f"uploads, result copies and VERIFIED 0.0 picks; gauges equal "
+            f"the counters {b['counters']}; launches {b['launches']} "
+            f"(card: {card})")
+    log(f"16b top: {out['top_shard_line']} (card: {card})")
+    log(f"16a/b steps: " + ", ".join(
+        f"{n} {t:.2f} s" for n, t in out["steps_s"].items())
+        + f"; bursts {d['burst_s']:.2f} s + quiet {d['quiet_s']:.2f} s "
+        f"dense, {x4['burst_s']:.2f} + {x4['quiet_s']:.2f} s x4, "
+        f"retried {d['retried']} / {x4['retried']} (card: {card})")
+    t0 = time.perf_counter()
+    cache_sanitized(card, out)
+    timed["16c"] = time.perf_counter() - t0
+    out["seconds"] = timed
+    log(f"cache: parts {', '.join(f'{n} {t:.1f} s' for n, t in timed.items())}"
+        f" (card: {card})")
+
+
 def main() -> int:
     import torch
 
@@ -7553,6 +7961,7 @@ def run_phases() -> int:
     timed("replicated", phase_replicated, card, results)
     timed("sharded", phase_sharded, card, results)
     timed("chaos", phase_chaos, card, results)
+    timed("cache", phase_cache, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "

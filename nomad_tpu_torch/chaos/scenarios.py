@@ -433,6 +433,22 @@ def _overload_tuned_config():
     )
 
 
+def _pressure_at_end(server) -> Dict:
+    """What the controller saw when recovery was judged: its fast and
+    slow pressure, the health inputs that were not zero, and the blocked
+    evals (a job the cluster has no room for stays blocked, and counts as
+    pressure, until room appears)."""
+    from ..obs.health import collect_signals, compute_health
+
+    ctrl = server.overload_controller
+    inputs = compute_health(collect_signals(server))["inputs"]
+    return {
+        "fast": round(ctrl._fast, 4), "slow": round(ctrl._slow, 4),
+        "inputs": {k: v for k, v in inputs.items() if v},
+        "blocked_evals": server.blocked_evals.blocked_count(),
+    }
+
+
 def _overload_cluster(n: int = 3, device="cuda"):
     """3-server raft control plane tuned for overload scenarios: one
     worker (so a crowd actually builds backlog), a fast observatory
@@ -598,6 +614,7 @@ def flash_crowd_flapping_partition(
         # -- recovery: de-escalate back to steady ----------------------
         recovered = _wait(lambda: ctrl.state == "steady", timeout=30)
         report["recovered"] = recovered
+        report["pressure_at_end"] = _pressure_at_end(srv)
         report["flips"] = ctrl.flips_total
         report["flips_suppressed"] = ctrl.flips_suppressed
         report["flip_budget"] = ctrl.cfg.max_flips
@@ -675,6 +692,7 @@ def breach_while_leader_killed(
             timeout=30,
         )
         report["recovered"] = recovered
+        report["pressure_at_end"] = _pressure_at_end(nsrv)
         report["new_leader_flips"] = nsrv.overload_controller.flips_total
         report["flip_budget"] = nsrv.overload_controller.cfg.max_flips
         violations = wait_converged(

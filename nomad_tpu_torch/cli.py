@@ -6,9 +6,10 @@ operator scheduler config, metrics).
 A copy of the reference package's ``cli.py``, run as
 ``python -m nomad_tpu_torch.cli``.  ``agent`` takes ``--device`` (default
 ``cuda``): the device of the agent's server, which fails without a card
-unless ``--device cpu`` asks for the CPU.  Every other command speaks HTTP
-only.  The reference's ``lint`` command is not here (no lint in this
-package yet).
+unless ``--device cpu`` asks for the CPU.  ``lint`` runs the port's
+static analysis (``nomad_tpu_torch/lint/``) over its own tree, without
+the reference's ``--jaxpr`` (the port traces nothing).  Every other
+command speaks HTTP only.
 """
 
 from __future__ import annotations
@@ -771,6 +772,17 @@ def cmd_trace_config(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    from .lint.__main__ import main as lint_main
+
+    forwarded = []
+    if args.verbose:
+        forwarded.append("--verbose")
+    if args.baseline:
+        forwarded += ["--baseline", args.baseline]
+    return lint_main(forwarded)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nomad-tpu", description="workload orchestrator (PyTorch/CUDA port)"
@@ -1058,6 +1070,14 @@ def build_parser() -> argparse.ArgumentParser:
     tcfg.add_argument("--enable", action="store_true")
     tcfg.add_argument("--disable", action="store_true")
     tcfg.set_defaults(fn=cmd_trace_config)
+
+    lint = sub.add_parser(
+        "lint", help="static analysis: lock discipline, dispatch hot path, "
+        "chaos seams, observability, dispatch contracts"
+    )
+    lint.add_argument("-v", "--verbose", action="store_true")
+    lint.add_argument("--baseline", default=None)
+    lint.set_defaults(fn=cmd_lint)
     return p
 
 

@@ -7,8 +7,14 @@ on the CPU.  Callers that want the CPU (the tests) say ``device="cpu"``.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import numpy as np
 import torch
+
+# The byte meters of the uploads each thread makes (``upload_meter``).
+_meters = threading.local()
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -39,6 +45,28 @@ def upload(a, dev: torch.device) -> torch.Tensor:
     result may share the array's memory."""
     t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(
         a, np.ndarray) else a.contiguous()
+    meter = getattr(_meters, "meter", None)
+    if meter is not None:
+        meter.bytes += t.numel() * t.element_size()
     if dev.type == "cuda" and t.device.type == "cpu":
         t = t.pin_memory()
     return t.to(dev, non_blocking=True)
+
+
+class UploadMeter:
+    """The bytes of the uploads made inside one ``upload_meter`` block."""
+
+    def __init__(self):
+        self.bytes = 0
+
+
+@contextmanager
+def upload_meter():
+    """Counts the bytes of every :func:`upload` this thread makes inside
+    the block: the page-locked copies to a card, and on the CPU the bytes
+    the same call would copy there.  Yields an :class:`UploadMeter`."""
+    meter = _meters.meter = UploadMeter()
+    try:
+        yield meter
+    finally:
+        _meters.meter = None

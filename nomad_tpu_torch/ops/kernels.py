@@ -729,22 +729,49 @@ def place_lanes(arrays: DeviceArrays, used, delta_rows, delta_vals,
                 features: Features = FULL_FEATURES):
     """Plain version of the ``fused_place`` kernel: B placement scans of
     ``n_placements`` steps.  Returns (B, P, PACKED_WIDTH) f32; dead lanes
-    (``lane_mask`` False) read row -1 and zeros."""
+    (``lane_mask`` False) read row -1 and zeros.
+
+    Lanes never read each other's state, so only the live lanes are
+    scanned: their rows of the request, the operands and the carries are
+    gathered, scored and scattered back into the output, which gives every
+    live lane the same bits as a scan of all B lanes.  Rows past the last
+    eligible one are never feasible: they score ``NEG_INF`` and count in
+    no counter, so the scan leaves them out too (every pick is the same
+    first maximum, every count the same)."""
     place_lanes.calls += 1
-    req = unpack_requests(req_i, req_f)
     b = req_i.shape[0]
     dev = used.device
-    out = torch.empty((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
+    out = torch.zeros((b, n_placements, PACKED_WIDTH), dtype=torch.float32,
                       device=dev)
+    out[:, :, PACKED_ROW] = -1.0
+    idx = torch.nonzero(lane_mask).flatten()
+    if idx.numel() == 0:
+        return out
+    eligible_rows = torch.nonzero(arrays.eligible).flatten()
+    n_rows = int(eligible_rows[-1]) + 1 if eligible_rows.numel() else 1
+    if n_rows < used.shape[0]:
+        arrays = DeviceArrays(*(col[:n_rows] for col in arrays))
+        used = used[:n_rows]
+        tg_counts, penalties, host_masks = (
+            x[:, :n_rows] for x in (tg_counts, penalties, host_masks))
+    if idx.numel() < b:
+        delta_rows, delta_vals, tg_counts, spread_counts, penalties = (
+            x.index_select(0, idx) for x in (
+                delta_rows, delta_vals, tg_counts, spread_counts, penalties))
+        req_i, req_f, class_eligs, host_masks = (
+            x.index_select(0, idx) for x in (
+                req_i, req_f, class_eligs, host_masks))
+    req = unpack_requests(req_i, req_f)
     u = lane_base_usage(used, delta_rows, delta_vals)
     tg = tg_counts.to(torch.int32).clone()
     s_hash = req.s_value_hash.clone()
     s_counts = spread_counts.to(torch.float32).clone()
     sp = _static_parts(arrays, req, penalties, class_eligs, host_masks, features)
-    live = lane_mask.clone()
+    live_out = torch.empty((idx.numel(), n_placements, PACKED_WIDTH),
+                           dtype=torch.float32, device=dev)
     for step in range(n_placements):
         res = _score_step(arrays, req, sp, u, tg, s_hash, s_counts, features)
-        out[:, step], row, ok = _pick(res, arrays.eligible, live)
+        live_out[:, step], row, ok = _pick(res, arrays.eligible)
         # Carry update on the winning row of each placing lane.
         for lane in torch.nonzero(ok).flatten().tolist():
             r = int(row[lane])
@@ -753,6 +780,7 @@ def place_lanes(arrays: DeviceArrays, used, delta_rows, delta_vals,
             if features.s_width:
                 nvalues = arrays.attr_hash[r, req.s_slot[lane].clamp(min=0).long()]
                 _apply_spread_values(req, lane, s_hash, s_counts, nvalues)
+    out.index_copy_(0, idx, live_out)
     return out
 
 

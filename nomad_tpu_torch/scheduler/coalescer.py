@@ -89,7 +89,8 @@ import torch
 
 from .. import trace
 from ..chaos import inject
-from ..device import resolve_device, upload
+from ..device import resolve_device, upload, upload_meter
+from ..lint import tsan
 from ..obs.breaker import (
     STALL_OK,
     STALL_SLOW,
@@ -303,13 +304,26 @@ class DeviceCoalescer:
         self.stale_dispatches = 0
         self.inflight = 0
         self.solo_ops = 0
-        # Fused accounting: launches and live lanes, and the
-        # occupancy-features ratchet (a monotone widening union of what
-        # the batches used).
+        # Host→device operand traffic: the bytes of every lane-operand
+        # upload of a batched dispatch (the page-locked copies on the
+        # card), fused, staged and sharded.  The resident matrix travels
+        # apart, counted by matrix.upload_bytes_total.
+        self.operand_bytes_total = 0
+        # Fused accounting: launches and live lanes, the verify-column
+        # conflicts (placements an earlier lane's plan will make the
+        # applier reject), and the occupancy-features ratchet (a monotone
+        # widening union of what the batches used) with the number of
+        # times it widened.
         self.megabatch = megabatch_enabled()
         self.fused_dispatches = 0
         self.fused_lanes = 0
+        self.verify_conflicts = 0
+        self.feature_recompiles = 0
         self._features: Optional[kernels.Features] = None
+        # Device→host result traffic: the bytes of each ticket's packed
+        # (lanes, placements, width) result read back — O(B·P), never
+        # node-axis shaped (exported as nomad.topk.host_bytes_total).
+        self.topk_host_bytes_total = 0
         # Device fault domain (obs/breaker.py): the resolver classifies
         # every wait ok/slow/wedged under the watchdog deadline; the
         # breaker gates each dispatch.  Wedged tickets count here (their
@@ -319,6 +333,10 @@ class DeviceCoalescer:
         # The ticket the resolver is waiting on (the stop path fails its
         # lanes if the resolver misses its join window).
         self._resolving: Optional[_Ticket] = None
+        # TSan-lite (lint/tsan.py): lockset checking on the pending queue
+        # and device-op list when a test enabled the sanitizer.
+        if tsan.enabled():
+            tsan.instrument("coalescer", self)
 
     # ------------------------------------------------------------------
 
@@ -746,10 +764,16 @@ class DeviceCoalescer:
 
     def _ratchet_features(self, k: int) -> kernels.Features:
         """The occupancy-features ratchet: a monotone widening union, so a
-        narrow batch after a wide one keeps the wide loop bounds."""
+        narrow batch after a wide one keeps the wide loop bounds.  Each
+        widening counts in ``feature_recompiles``: the event the reference
+        counts as a recompile of its jitted program.  The port compiles
+        nothing here (the kernels take the features as launch
+        arguments), so the counter counts the same event, not a build."""
         feats = kernels.features_of(self._req_slab.live_view(k))
         if self._features is not None:
             feats = self._features.widen(feats)
+        if feats != self._features:
+            self.feature_recompiles += 1
         self._features = feats
         return feats
 
@@ -869,35 +893,36 @@ class DeviceCoalescer:
         for i, p in enumerate(batch):
             self._req_slab.fill(i, p.request)
         ri, rf = kernels.pack_requests(self._req_slab.batch())
-
-        if sharded is not None:
-            if fused_fn is not None:
-                packed = fused_fn(
-                    sharded, dr, dv, tg, sc, pen, ri, rf, ce, hm, lm,
+        with upload_meter() as meter:
+            if sharded is not None:
+                if fused_fn is not None:
+                    packed = fused_fn(
+                        sharded, dr, dv, tg, sc, pen, ri, rf, ce, hm, lm,
+                        features=self._ratchet_features(k),
+                    )
+                    self.fused_dispatches += 1
+                    self.fused_lanes += k
+                else:
+                    packed = staged_fn(sharded, dr, dv, tg, sc, pen, ri, rf,
+                                       ce, hm)
+            elif self.megabatch:
+                packed = kernels.fused_place_batch(
+                    arrays, arrays.used,
+                    *(upload(a, dev)
+                      for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm, lm)),
+                    n_placements=self.scan_length,
                     features=self._ratchet_features(k),
                 )
                 self.fused_dispatches += 1
                 self.fused_lanes += k
             else:
-                packed = staged_fn(sharded, dr, dv, tg, sc, pen, ri, rf, ce,
-                                   hm)
-        elif self.megabatch:
-            packed = kernels.fused_place_batch(
-                arrays, arrays.used,
-                *(upload(a, dev)
-                  for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm, lm)),
-                n_placements=self.scan_length,
-                features=self._ratchet_features(k),
-            )
-            self.fused_dispatches += 1
-            self.fused_lanes += k
-        else:
-            packed = kernels.place_batch(
-                arrays, arrays.used,
-                *(upload(a[:k], dev)
-                  for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm)),
-                n_placements=self.scan_length,
-            )
+                packed = kernels.place_batch(
+                    arrays, arrays.used,
+                    *(upload(a[:k], dev)
+                      for a in (dr, dv, tg, sc, pen, ri, rf, ce, hm)),
+                    n_placements=self.scan_length,
+                )
+        self.operand_bytes_total += meter.bytes
         if dev.type != "cuda":
             return packed, None, version
         # One ticket, one copy, behind its own kernels only: the copy is
@@ -1000,6 +1025,9 @@ class DeviceCoalescer:
         else:
             brk.record_ok(elapsed, canary=ticket.canary)
         resolved_at = time.time()
+        # Result traffic: the ticket's packed (lanes, placements, width)
+        # copy — O(B·P), winner rows only, never node-axis shaped.
+        self.topk_host_bytes_total += arr.nbytes
         # The launch→resolver hop: each lane's device window (launch to
         # result on the host) recorded here, on the resolver thread,
         # against the trace context the worker thread captured in place().
@@ -1040,6 +1068,7 @@ class DeviceCoalescer:
                 # judges its picks.
                 vcol = row[:, kernels.FUSED_PACKED_VERIFIED]
                 fit_verified = ~((rows_i >= 0) & (vcol == 0.0))
+                self.verify_conflicts += int((~fit_verified).sum())
             p.outcome = PlaceOutcome(
                 rows=rows_i,
                 scores=row[:, kernels.PACKED_SCORE],

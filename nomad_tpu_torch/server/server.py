@@ -270,10 +270,7 @@ class Server:
 
     def _register_telemetry_gauges(self) -> None:
         """The matrix, coalescer and encoder counters as pull gauges of the
-        registry, so one snapshot carries the device cost picture.  The
-        reference's gauges on counters this package's coalescer does not
-        keep (top-k host bytes, verify conflicts, feature recompiles,
-        operand bytes) wait for those subjects."""
+        registry, so one snapshot carries the device cost picture."""
         m = self.metrics
         c = self.coalescer
         mx = self.matrix
@@ -309,9 +306,12 @@ class Server:
         m.gauge_fn(
             "nomad.matrix.upload_bytes_total", lambda: mx.upload_bytes_total
         )
-        # Per-kernel attribution: launch counts by path and the request
-        # compile cache's hits and misses.  One fused launch serves every
-        # coalesced lane (launches/eval = fused_dispatches / fused_lanes).
+        # Per-kernel attribution: launch counts by path, the request
+        # compile cache's hits and misses, and host→device operand
+        # traffic.  One fused launch serves every coalesced lane
+        # (launches/eval = fused_dispatches / fused_lanes), plus the
+        # cross-lane AllocsFit verify verdicts and the occupancy-features
+        # ratchet.
         m.gauge_fn("nomad.kernel.launches", lambda: c.dispatches, path="batched")
         m.gauge_fn("nomad.kernel.launches", lambda: c.solo_ops, path="solo")
         m.gauge_fn(
@@ -324,14 +324,24 @@ class Server:
             path="fused",
         )
         m.gauge_fn(
+            "nomad.kernel.verify_conflicts", lambda: c.verify_conflicts
+        )
+        m.gauge_fn(
+            "nomad.kernel.feature_recompiles", lambda: c.feature_recompiles
+        )
+        m.gauge_fn(
             "nomad.kernel.compile_cache", lambda: enc.cache_hits, result="hit"
         )
         m.gauge_fn(
             "nomad.kernel.compile_cache", lambda: enc.cache_misses, result="miss"
         )
+        m.gauge_fn(
+            "nomad.kernel.operand_bytes_total", lambda: c.operand_bytes_total
+        )
         # Node-axis sharding: claimed rows per home shard (more series
         # appear when the coalescer homes the matrix to a wider mesh at
-        # its first dispatch).
+        # its first dispatch) and the device→host result traffic — packed
+        # (B, P, 8) winner blocks only, never node-axis shaped.
         for s in range(mx.shard_count):
             m.gauge_fn(
                 "nomad.matrix.shard_rows",
@@ -340,6 +350,9 @@ class Server:
                 ),
                 shard=s,
             )
+        m.gauge_fn(
+            "nomad.topk.host_bytes_total", lambda: c.topk_host_bytes_total
+        )
 
     # ------------------------------------------------------------------
 
@@ -604,6 +617,24 @@ class Server:
         # would silently drop work the server itself originated.
         if not internal:
             self.admission_gate.check(job.namespace, job.priority)
+        # An exclusive-writer volume cannot back more than one alloc.
+        for tg in job.task_groups:
+            for vreq in (tg.volumes or {}).values():
+                if (
+                    vreq.type == "csi" and not vreq.read_only
+                    and not vreq.per_alloc and tg.count > 1
+                ):
+                    vol = self.store.volume_by_id(
+                        job.namespace, vreq.source
+                    )
+                    if vol is not None and vol.access_mode == (
+                        "single-node-writer"
+                    ):
+                        raise ValueError(
+                            f"group {tg.name!r}: volume {vreq.source!r} "
+                            "has single-node-writer access mode but "
+                            f"count={tg.count}"
+                        )
         index = self.next_index()
         job.submit_time = time.time()
         job.status = JobStatus.PENDING.value

@@ -35,7 +35,10 @@ A second resident copy may be laid out over a mesh of devices
 (``sync_sharded``, the node-sharded dispatch of ``parallel/``): the rows
 split into ``shard_count`` equal home-shard blocks, claims balance across
 them, growth keeps each row's shard, and an evacuation re-lays every row
-over the surviving shards.
+over the surviving shards.  ``save_encoded``/``load_encoded`` write and
+read the encoded host matrix as an ``.npz`` file in the reference's
+format, so a cluster encoded once (by either package) loads without
+re-walking its nodes.
 ``port_words`` is ``uint32`` on the host and travels as an ``int32`` view
 of the same bits: PyTorch's CPU kernels have no ``>>`` on ``uint32``, and
 ``(w >> b) & 1`` reads the same bit of either type for every b ≤ 31.
@@ -43,8 +46,11 @@ of the same bits: PyTorch's CPU kernels have no ``>>`` on ``uint32``, and
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
+import zipfile
 import zlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..lint import tsan
 from ..structs.types import Allocation, Node
 
 # All device interactions funnel through this lock. There is one card per
@@ -339,6 +346,10 @@ class NodeMatrix:
         # anything older resolves to -1 (a failed placement, retried).
         self._remaps: List[Tuple[int, np.ndarray]] = []
         self._remap_floor = 0
+        # TSan-lite (lint/tsan.py): lockset checking on _alloc row writes
+        # and the dirty sets when a test enabled the sanitizer.
+        if tsan.enabled():
+            tsan.instrument("matrix", self)
 
     def shared_encoder(self):
         """The matrix-wide RequestEncoder.  Scheduling stacks are built per
@@ -847,6 +858,131 @@ class NodeMatrix:
     def snapshot_host(self) -> Dict[str, np.ndarray]:
         """Host-side view (no copy) of the active arrays."""
         return self._alloc
+
+    # -- encoded-matrix persistence (warm start) -----------------------------
+
+    # Bump when the encoded layout changes (array fields, registry
+    # semantics, hashing): stale caches must miss, not deserialize wrong.
+    # The reference's number: a file either package writes loads in the
+    # other.
+    ENCODED_FORMAT = 2
+
+    def save_encoded(self, path) -> None:
+        """Serialize the encoded host matrix — arrays, row maps and
+        registries — to ``path`` (.npz): every host array under its field
+        name (``port_words`` as ``uint32``) and a ``__meta__`` JSON of the
+        rest, written through a temporary file and renamed."""
+        with self._host_lock:
+            meta = {
+                "format": self.ENCODED_FORMAT,
+                "capacity": self.capacity,
+                "next_row": self._next_row,
+                "shard_count": self.shard_count,
+                "free": list(self._free),
+                "row_of": self.row_of,
+                "class_ids": self.class_ids,
+                "class_repr": self.class_repr,
+                "attr_slots": self.attrs.slots,
+                "attr_slot_of": self.attrs.slot_of,
+                "dev_slots": self.devices.slots,
+                "dev_slot_of": self.devices.slot_of,
+            }
+            payload = dict(self._alloc)
+            payload["__meta__"] = np.frombuffer(
+                json.dumps(meta).encode(), np.uint8
+            )
+            tmp = str(path) + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **payload)
+            os.replace(tmp, str(path))
+
+    def load_encoded(self, path) -> bool:
+        """Restore a matrix serialized by :meth:`save_encoded` (of either
+        package).  Returns False, leaving the matrix untouched, on an
+        unreadable file, another format, a missing field or array, or an
+        array whose shape or type does not match the meta.  After a load
+        the next ``sync``/``sync_sharded`` is one full upload into new
+        tensors, as after a restore; ``shard_count`` keeps the home
+        shards."""
+        try:
+            with np.load(str(path)) as data:
+                meta = json.loads(bytes(data["__meta__"]).decode())
+                if meta.get("format") != self.ENCODED_FORMAT:
+                    return False
+                arrays = {
+                    k: np.array(data[k]) for k in self._alloc
+                    if k in data.files
+                }
+            state = self._decode_meta(meta)
+        except (OSError, ValueError, KeyError, TypeError, AttributeError,
+                EOFError, zipfile.BadZipFile):
+            return False
+        if set(arrays) != set(self._alloc):
+            return False
+        cap = state["capacity"]
+        widths = {"attr_hash": state["attr_slots"],
+                  "attr_num": state["attr_slots"],
+                  "attr_ver": state["attr_slots"],
+                  "dev_total": state["dev_slots"],
+                  "dev_used": state["dev_slots"]}
+        for k, a in arrays.items():
+            tmpl = self._alloc[k]
+            want = (cap,) + ((widths[k],) if k in widths else tmpl.shape[1:])
+            if a.dtype != tmpl.dtype or a.shape != want:
+                return False
+        shards = state["shard_count"]
+        if cap % shards or any(
+                not 0 <= r < cap for r in state["row_of"].values()):
+            return False
+        with self._host_lock:
+            self.capacity = cap
+            self._next_row = state["next_row"]
+            self._free = state["free"]
+            self.row_of = state["row_of"]
+            self.node_of = {v: k for k, v in self.row_of.items()}
+            self.class_ids = state["class_ids"]
+            self.class_repr = state["class_repr"]
+            self.attrs.slots = state["attr_slots"]
+            self.attrs.slot_of = state["attr_slot_of"]
+            self.devices.slots = state["dev_slots"]
+            self.devices.slot_of = state["dev_slot_of"]
+            self._alloc = arrays
+            self._dirty.clear()
+            self._sharded_dirty.clear()
+            self._device_valid = False
+            self._sharded_valid = False
+            self._shared_masks = None
+            self._shared_zero_i32 = None
+            self.shard_count = shards
+            blk = cap // shards
+            self._shard_next = [s * blk for s in range(shards)]
+            self._shard_claimed = [0] * shards
+            for r in self.node_of:
+                self._shard_claimed[r // blk] += 1
+            self.version += 1
+        return True
+
+    @staticmethod
+    def _decode_meta(meta) -> Dict:
+        """The typed state of a ``__meta__`` record; raises KeyError,
+        ValueError or TypeError on a missing or malformed field."""
+        return {
+            "capacity": int(meta["capacity"]),
+            "next_row": int(meta["next_row"]),
+            "shard_count": max(1, int(meta.get("shard_count", 1))),
+            "free": [int(r) for r in meta["free"]],
+            "row_of": {str(k): int(v) for k, v in meta["row_of"].items()},
+            "class_ids": {
+                str(k): int(v) for k, v in meta["class_ids"].items()},
+            "class_repr": {
+                int(k): v for k, v in meta["class_repr"].items()},
+            "attr_slots": int(meta["attr_slots"]),
+            "attr_slot_of": {
+                str(k): int(v) for k, v in meta["attr_slot_of"].items()},
+            "dev_slots": int(meta["dev_slots"]),
+            "dev_slot_of": {
+                str(k): int(v) for k, v in meta["dev_slot_of"].items()},
+        }
 
     def sync(self, device=None) -> DeviceArrays:
         """Return the resident snapshot on ``device`` (default: the

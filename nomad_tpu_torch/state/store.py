@@ -54,6 +54,7 @@ from ..structs.types import (
     NodeStatus,
     SchedulerConfiguration,
 )
+from ..lint import tsan
 from .matrix import NodeMatrix
 
 
@@ -258,6 +259,12 @@ class StateStore:
         # with a bounded ring instead of immutable radix trees.
         self._history: Dict[Tuple[str, object], List] = {}
         self.history_depth = 4
+
+        # TSan-lite (lint/tsan.py): wraps locks + primary tables with
+        # lockset checking when a test enabled the sanitizer; one flag
+        # test otherwise.
+        if tsan.enabled():
+            tsan.instrument("store", self)
 
     # ------------------------------------------------------------------
     # Index bookkeeping / blocking queries

@@ -10,7 +10,7 @@ place the reference hooks memdb txns), carrying *references* to the
 store's immutable objects — serialization cost is paid per-subscriber at
 stream time, not per-commit.
 
-A copy of the reference package's broker without its TSan hooks.
+A copy of the reference package's broker, TSan-lite hooks included.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ import threading
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from ..lint import tsan
 
 TOPIC_ALL = "*"
 
@@ -63,6 +65,8 @@ class Subscription:
         self._queue: deque = deque()
         self._cond = threading.Condition()
         self.closed = False
+        if tsan.enabled():
+            tsan.instrument("subscription", self)
 
     def _matches(self, ev: Event) -> bool:
         for topic in (ev.topic, TOPIC_ALL):
@@ -111,6 +115,8 @@ class EventBroker:
         # subscriber with a pre-restart cursor must see a gap marker.
         # A ``from_index`` at or below this cannot be served gaplessly.
         self._dropped_through = 0
+        if tsan.enabled():
+            tsan.instrument("broker", self)
 
     def mark_history_truncated(self, through_index: int) -> None:
         """Declare that no event with index <= ``through_index`` can be

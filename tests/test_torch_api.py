@@ -522,24 +522,20 @@ def test_observability_routes(tmp_path):
             return out
 
         got = {name: script(a.rpc_addr, a) for name, a in pair.items()}
-    # The port's registry lacks exactly the gauges whose subjects it does
-    # not have (ROADMAP "Drops": the coalescer counters).
-    dropped = {"nomad.kernel.feature_recompiles",
-               "nomad.kernel.operand_bytes_total",
-               "nomad.kernel.verify_conflicts",
-               "nomad.topk.host_bytes_total"}
+    # Both registries carry the same metrics, the coalescer's four
+    # counters' gauges included.
     jax_metrics = got["jax"].pop("metrics")
     port_metrics = got["port"].pop("metrics")
     assert port_metrics[0] == jax_metrics[0] == 200
-    assert sorted(set(jax_metrics[1]) - dropped) == port_metrics[1]
+    assert jax_metrics[1] == port_metrics[1]
+    for name in ("nomad.kernel.feature_recompiles",
+                 "nomad.kernel.operand_bytes_total",
+                 "nomad.kernel.verify_conflicts",
+                 "nomad.topk.host_bytes_total"):
+        assert name in port_metrics[1]
     jax_prom = got["jax"].pop("prometheus")
     port_prom = got["port"].pop("prometheus")
-    assert jax_prom[:2] == port_prom[:2]
-    prom_dropped = {"nomad_kernel_feature_recompiles",
-                    "nomad_kernel_operand_bytes_total",
-                    "nomad_kernel_verify_conflicts",
-                    "nomad_topk_host_bytes_total"}
-    assert sorted(set(jax_prom[2]) - prom_dropped) == port_prom[2]
+    assert jax_prom == port_prom
     assert any(n.startswith("nomad_coalescer_dispatches")
                for n in port_prom[2])
     for label in got["jax"]:

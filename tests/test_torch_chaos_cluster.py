@@ -2,8 +2,8 @@
 server agents on loopback HTTP, at the reference's seeds
 (``tests/test_chaos.py``).  A file of few tests, handed out well after
 ``tests/test_chaos.py`` (ROADMAP R2).  The reference runs TSan-lite
-beside ``leader_kill_mid_apply``; the port's lint, TSan-lite included,
-is ROADMAP queue 1 item 9.
+beside ``leader_kill_mid_apply``; the port runs it beside its own in
+``tests/test_torch_chaos_tsan.py``.
 """
 
 import pytest

@@ -2,8 +2,8 @@
 under a flash crowd with a flapping link, and a leader killed while it
 sheds, at the reference's seeds (``tests/test_chaos.py``).  A file of few
 tests, handed out well after ``tests/test_chaos.py`` (ROADMAP R2).  The
-reference runs TSan-lite beside the flash crowd; the port's lint,
-TSan-lite included, is ROADMAP queue 1 item 9.
+reference runs TSan-lite beside the flash crowd; the port runs it beside
+its own in ``tests/test_torch_chaos_tsan.py``.
 """
 
 import pytest

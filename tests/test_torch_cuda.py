@@ -1079,3 +1079,112 @@ def test_shard_loss_mid_dispatch_places_like_plain(cuda, monkeypatch):
     assert card[6] == cpu[6] == (2, 3)
     assert card[5][0] > 0 and card[5][1] == 0  # the kernel, no plain
     assert cpu[5][0] == 0 and cpu[5][1] > 0
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype.is_floating_point else t
+
+
+@pytest.mark.cuda
+def test_first_sync_after_a_load_is_bitwise_on_the_card(cuda, tmp_path):
+    """An encoded file loads into a fresh matrix whose first sync is one
+    full upload into new tensors, equal bit for bit to the built matrix's
+    resident copy; the fused kernel then places on it as on the built
+    one."""
+    from nomad_tpu_torch.state.matrix import DeviceArrays
+
+    built = cluster(cuda)
+    want = built.sync()
+    path = tmp_path / "m.npz"
+    built.save_encoded(path)
+    m = NodeMatrix(capacity=16, device=cuda)
+    assert m.load_encoded(path)
+    got = m.sync()
+    assert m.full_uploads == 1 and m.scatter_syncs == 0
+    assert m.upload_bytes_total == sum(
+        a.nbytes for a in m.snapshot_host().values())
+    for f in DeviceArrays._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.device.type == "cuda" and a.data_ptr() != b.data_ptr()
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)), f
+    reqs = requests(m)
+    loaded_args, feats = batch_args(m, reqs, cuda)
+    built_args, _ = batch_args(built, reqs, cuda)
+    assert m.full_uploads == 1 and loaded_args[0] is got
+    k.reset_counts()
+    assert torch.equal(k.fused_place(*loaded_args, SCAN, feats),
+                       k.fused_place(*built_args, SCAN, feats))
+    assert k.fused_place.launches == 2 and k.place_lanes.calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", [1, 8])
+def test_counters_equal_what_the_results_show(cuda, devices):
+    """A card server's burst: the result bytes are the tickets' copies,
+    the conflicts the VERIFIED 0.0 picks its lanes got back, the operand
+    bytes what the dispatches' shapes upload; the gauges equal them."""
+    from nomad_tpu_torch.ops.kernels import REQ_FLOAT_WIDTH, REQ_INT_WIDTH
+    from nomad_tpu_torch.scheduler.coalescer import (
+        MAX_DELTA_ROWS,
+        DeviceCoalescer,
+    )
+
+    dev = "cuda" if devices == 1 else ["cuda"] * devices
+    srv = Server(ServerConfig(num_workers=8, node_capacity=64,
+                              heartbeat_min_ttl=3600.0,
+                              heartbeat_max_ttl=7200.0, slo_enabled=False,
+                              overload_enabled=False), device=dev)
+    seen = {"operand": 0, "result": 0, "conflicts": 0}
+    dispatch, resolve = DeviceCoalescer._dispatch, DeviceCoalescer._resolve
+
+    def watched_dispatch(co, batch):
+        out = dispatch(co, batch)
+        seen["result"] += out[0].numel() * out[0].element_size()
+        lanes = co.max_lanes
+        n = sum(a.nbytes for a in co._stage.values())
+        n += lanes * 4 * (REQ_INT_WIDTH + REQ_FLOAT_WIDTH)
+        if devices > 1:
+            n += lanes * (4 * REQ_FLOAT_WIDTH + 16 * MAX_DELTA_ROWS + 1)
+        seen["operand"] += n
+        return out
+
+    def watched_resolve(co, ticket):
+        resolve(co, ticket)
+        for p in ticket.entries:
+            if p.outcome is not None and p.outcome.fit_verified is not None:
+                seen["conflicts"] += int((~p.outcome.fit_verified).sum())
+
+    DeviceCoalescer._dispatch = watched_dispatch
+    DeviceCoalescer._resolve = watched_resolve
+    srv.start()
+    try:
+        for _ in range(12):
+            node = mock.node()
+            node.resources.cpu = 1200
+            srv.register_node(node)
+        evals = []
+        for i in range(24):
+            job = mock.job()
+            job.task_groups[0].count = 2
+            job.task_groups[0].tasks[0].resources.cpu = 250
+            evals.append(srv.submit_job(job))
+        for e in evals:
+            srv.wait_for_eval(e.id, 120)
+        deadline = time.time() + 60
+        while srv.coalescer.inflight_depth() and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        DeviceCoalescer._dispatch = dispatch
+        DeviceCoalescer._resolve = resolve
+        srv.shutdown()
+    co = srv.coalescer
+    assert co.topk_host_bytes_total == seen["result"] > 0
+    assert co.operand_bytes_total == seen["operand"] > 0
+    assert co.verify_conflicts == seen["conflicts"]
+    assert co.feature_recompiles >= 1
+    snap = srv.metrics.snapshot()
+    assert snap["nomad.topk.host_bytes_total"] == co.topk_host_bytes_total
+    assert snap["nomad.kernel.operand_bytes_total"] == co.operand_bytes_total
+    assert snap["nomad.kernel.verify_conflicts"] == co.verify_conflicts
+    assert snap["nomad.kernel.feature_recompiles"] == co.feature_recompiles
+    assert k.place_lanes.calls == 0 and k.verify_lanes.calls == 0

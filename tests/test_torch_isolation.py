@@ -47,6 +47,11 @@ def test_import_loads_no_jax_and_no_reference():
         "import nomad_tpu_torch.cli, nomad_tpu_torch.chaos\n"
         "import nomad_tpu_torch.chaos.scenarios\n"
         "import nomad_tpu_torch.chaos.wal_tools\n"
+        "import nomad_tpu_torch.lint, nomad_tpu_torch.lint.__main__\n"
+        "import nomad_tpu_torch.lint.lockpass, nomad_tpu_torch.lint.obspass\n"
+        "import nomad_tpu_torch.lint.chaospass, nomad_tpu_torch.lint.hotpass\n"
+        "import nomad_tpu_torch.lint.contracts, nomad_tpu_torch.lint.tsan\n"
+        "import nomad_tpu_torch.scheduler.testing\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -63,6 +68,9 @@ def test_import_loads_no_jax_and_no_reference():
     assert "nomad_tpu_torch.cli" in loaded
     assert "nomad_tpu_torch.chaos.injector" in loaded
     assert "nomad_tpu_torch.chaos.scenarios" in loaded
+    assert "nomad_tpu_torch.lint.hotpass" in loaded
+    assert "nomad_tpu_torch.lint.tsan" in loaded
+    assert "nomad_tpu_torch.scheduler.testing" in loaded
     bad = [m for m in loaded if forbidden(m)]
     assert bad == []
 
@@ -81,11 +89,44 @@ def test_no_module_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     for must in ("entry.py", "parallel/__init__.py", "parallel/sharding.py",
-                 "api/http_server.py", "api/rpc.py", "cli.py"):
+                 "api/http_server.py", "api/rpc.py", "cli.py",
+                 "lint/__init__.py", "lint/__main__.py", "lint/lockpass.py",
+                 "lint/lock_order.py", "lint/obspass.py", "lint/chaospass.py",
+                 "lint/hotpass.py", "lint/contracts.py", "lint/tsan.py",
+                 "scheduler/testing.py"):
         assert PORT / must in files
     bad = {str(f.relative_to(REPO)): name
            for f in files for name in imports_of(f) if forbidden(name)}
     assert bad == {}
+
+
+def test_lint_reads_no_file_of_the_reference(monkeypatch):
+    """The port's lint, its chaos catalog's reader included, opens no
+    file under ``nomad_tpu/`` and not the reference's ``CHAOS.md``: it
+    reads ``nomad_tpu_torch/``, its own catalog and baseline, and the
+    tests that name seams."""
+    import builtins
+
+    from nomad_tpu_torch.lint import chaospass, load_baseline, run_all
+
+    opened = []
+    real_open = builtins.open
+
+    def tracing_open(file, *a, **kw):
+        if isinstance(file, (str, os.PathLike)):
+            opened.append(Path(file).resolve())
+        return real_open(file, *a, **kw)
+
+    monkeypatch.setattr(builtins, "open", tracing_open)
+    run_all(str(REPO))
+    load_baseline()
+    assert (REPO / chaospass.DOC_NAME).resolve() in opened
+    reference = (REPO / "nomad_tpu").resolve()
+    bad = [str(p) for p in opened
+           if p == (REPO / "CHAOS.md").resolve()
+           or reference in p.parents]
+    assert bad == []
+    assert any(PORT.resolve() in p.parents for p in opened)
 
 
 def test_server_without_card_raises(monkeypatch):

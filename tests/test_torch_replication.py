@@ -803,7 +803,8 @@ CLUSTER_FILES = ("test_torch_replication_cluster.py",
                  "test_torch_chaos_cluster.py",
                  "test_torch_chaos_overload.py",
                  "test_torch_chaos_device.py",
-                 "test_torch_chaos_host.py")
+                 "test_torch_chaos_host.py",
+                 "test_torch_chaos_tsan.py")
 
 
 def test_clusters_are_handed_out_well_after_the_chaos_scenarios(request):

@@ -449,6 +449,8 @@ CHAOS_REPORT_KEYS = {
         "restored_shards"},
 }
 CHAOS_PORT_KEYS = {
+    "flash_crowd_flapping_partition": {"pressure_at_end"},
+    "breach_while_leader_killed": {"pressure_at_end"},
     "wedged_dispatch_recovers": {
         "crowd_placed", "placed_after_close", "crowd_to_trip_s",
         "trip_to_close_s", "crowd_to_placed_s"},
