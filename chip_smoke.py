@@ -394,6 +394,36 @@ Phases:
    10,000 nodes inside ``tsan.sanitized()``: the store, matrix,
    coalescer and broker instrumented, the kernels launched throughout,
    no plain version, zero race reports.
+17. sharded cluster — three in-process server agents (13a's config,
+   timers and cluster building: the lone leader takes the 10,000 nodes,
+   their usage as reservations, and ``server join`` adds the others, each
+   caught up by snapshot install), each with its coalescer over
+   ``["cuda:0"] * 8`` (four node shards).  Every member claims rows
+   densely until it dispatches.  17a: the 64-job burst from 8 threads,
+   the leader shut down after 32 acknowledged submits; once the shutdown
+   has returned every launch count and the survivors' ``full_uploads``
+   are zeroed.  The new leader, which never led, must lay its own mesh
+   out in one full sync at its first dispatch (timed), keep its rows
+   where it claimed them, and be the only member to dispatch:
+   ``sharded_place`` and the windowed ``allocs_fit_verify``, no unsharded
+   kernel, no plain version.  Every acknowledged submit on both
+   survivors and complete, equal images, fitting allocs, the resident
+   copy equal to a from-scratch ``shard_matrix_arrays`` bit for bit.
+   Then 8 more jobs (exactly P + 1 ``sharded_place`` launches a
+   dispatch), 16 nodes registered through the new leader onto the
+   least-claimed shards (``shard_row_counts`` logged before and after),
+   node-exporter, constrained to one rack of 32, on exactly its nodes
+   through ``system_feasible``, and
+   ``sharded_schedule_step`` over the new leader's mesh and resident
+   copy (the path of ``sharded_usage``, which no dispatch runs) held
+   against ``score_batch`` and the host usage exactly.  17b: the
+   shut-down member comes back by ``server join`` and a snapshot
+   install, the leader evacuates node shard 1 after 16 acknowledged
+   submits of a second burst and is shut down after 32, and the next
+   leader places the rest on four shards of its own mesh under the same
+   checks.  Logs the installs, shutdown → election and → first
+   placement, the first sync's ms and bytes, both bursts' evals/s and
+   the phase's seconds.
 
 Each phase logs its seconds.  Prints the kernel table as one JSON line
 before the last, and ends with
@@ -413,6 +443,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -5194,7 +5225,6 @@ def phase_front_door(card: str, results: dict) -> None:
     import threading
     from collections import Counter
     from concurrent.futures import ThreadPoolExecutor
-    from types import SimpleNamespace
 
     from nomad_tpu_torch.api import Agent, AgentConfig, APIClient
     from nomad_tpu_torch.api.client import APIError
@@ -5643,9 +5673,10 @@ def seeded_usage(n: int) -> np.ndarray:
     return np.round(rng.uniform(0.1, 0.6, (n, 3)) * totals)
 
 
-def repl_agent(i: int, port: int, peers, raft: bool):
+def repl_agent(i: int, port: int, peers, raft: bool, device=None):
     """An in-process server agent of the cluster: the server phases'
-    config, the cluster secret, blocked retries every 2 s."""
+    config, the cluster secret, blocked retries every 2 s; on
+    ``FRONT_DEVICE`` unless ``device`` names another (or a list)."""
     from nomad_tpu_torch.api import Agent, AgentConfig
 
     sc = server_config()
@@ -5659,7 +5690,7 @@ def repl_agent(i: int, port: int, peers, raft: bool):
     return Agent(AgentConfig(
         name=f"server-{i}", server_enabled=True, client_enabled=False,
         http_host="127.0.0.1", http_port=port, server_config=sc),
-        device=FRONT_DEVICE)
+        device=FRONT_DEVICE if device is None else device)
 
 
 def free_ports(n: int) -> list:
@@ -5712,28 +5743,41 @@ def timed_install(srv, out: list) -> None:
     srv.install_snapshot = traced
 
 
-def timed_first_sync(m, out: dict) -> None:
-    """Record the first ``NodeMatrix.sync`` of ``m``: its milliseconds
-    (the card synchronised after it), bytes and whether it was a full
-    upload."""
+def device_bytes(arrays) -> int:
+    """The bytes of every tensor a sync returned: one ``DeviceArrays``,
+    or each shard of each batch row of a mesh-resident copy."""
+    if hasattr(arrays, "shards"):
+        return sum(device_bytes(sh) for row in arrays.shards for sh in row)
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def timed_first_sync(m, out: dict, method: str = "_sync_locked") -> None:
+    """Record the first call of ``m``'s sync ``method``
+    (``_sync_locked(device)`` or ``_sync_sharded_locked(mesh)``): its
+    milliseconds (every card it wrote synchronised after it), the host
+    bytes it counted, the bytes of the copy it returned, and whether it
+    was a full upload."""
     import torch
 
-    sync_locked = m._sync_locked
+    locked = getattr(m, method)
 
-    def traced(dev):
+    def traced(where):
         if "ms" in out:
-            return sync_locked(dev)
+            return locked(where)
         uploads, nbytes = m.full_uploads, m.upload_bytes_total
         t0 = time.perf_counter()
-        arrays = sync_locked(dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        arrays = locked(where)
+        devices = set(where.flat()) if hasattr(where, "flat") else {where}
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         out["ms"] = (time.perf_counter() - t0) * 1e3
         out["bytes"] = m.upload_bytes_total - nbytes
+        out["device_bytes"] = device_bytes(arrays)
         out["full"] = m.full_uploads == uploads + 1
         return arrays
 
-    m._sync_locked = traced
+    setattr(m, method, traced)
 
 
 def timed_replicate(rep, out: dict) -> None:
@@ -5853,190 +5897,233 @@ class Submitter:
                 break
 
 
+def grow_cluster(make_agent, tmp: str, ports, agents: list, label: str,
+                 out: dict) -> None:
+    """Grow a cluster from one server to REPL_SERVERS: the lone leader
+    takes N_NODES nodes with the server phases' usage as reservations,
+    and each joiner, added by ``server join``, catches up by snapshot
+    install.  ``make_agent(i, port, peers)`` builds member ``i``; each
+    agent goes into ``agents`` as soon as it exists (the caller shuts
+    them down).  Checks that nothing dispatched."""
+    addrs = [f"http://127.0.0.1:{p}" for p in ports]
+    t0 = time.perf_counter()
+    first = make_agent(0, ports[0], [])
+    agents.append(first)
+    first.start()
+    wait_for(lambda: first.server.replicator.is_leader,
+             f"{label}: the lone server to lead", timeout_s=REPL_WAIT_S)
+    usage = seeded_usage(N_NODES)
+    for i in range(N_NODES):
+        first.server.register_node(reserved_node(i, usage[i]))
+    out["register_s"] = time.perf_counter() - t0
+    installs: list = []
+    rep = first.server.replicator
+    for i in range(1, REPL_SERVERS):
+        joined = cli_ok(tmp, "--address", addrs[0], "server", "join",
+                        addrs[i])
+        if addrs[i] not in joined:
+            raise AssertionError(f"{label}: `server join` said {joined}")
+        t0 = time.perf_counter()
+        a = make_agent(i, ports[i], [addrs[0]])
+        timed_install(a.server, installs)
+        agents.append(a)
+        a.start()
+        repl_wait(agents, lambda a=a, i=i: (
+            a.server.replicator.snapshots_installed >= 1
+            and len(a.server.store.nodes) == N_NODES
+            and a.server.replicator.leader_addr == addrs[0]
+            and rep.peers[addrs[i]].healthy
+            and not rep._installing(addrs[i])),
+            f"{label}: server-{i} caught up")
+        out[f"catch_up_{i}_s"] = time.perf_counter() - t0
+    repl_wait(agents, lambda: all(
+        len(a.server.replicator.peers) == REPL_SERVERS - 1 for a in agents),
+        f"{label}: three members on every server")
+    if any(a.server.coalescer.dispatches for a in agents):
+        raise AssertionError(f"{label}: a server dispatched before any job "
+                             f"was submitted")
+    out["install_s"] = installs
+
+
+def burst_across_failover(live: list, kill_at: int, label: str, out: dict,
+                          launches_fn, sync_method: str = "_sync_locked",
+                          before_kill=None) -> SimpleNamespace:
+    """SERVER_JOBS count-SERVER_COUNT jobs from REPL_THREADS threads
+    across the leader's shutdown after ``kill_at`` acknowledged submits
+    (``before_kill(old, submitter)`` runs first; ``live`` are the members
+    up), then REPL_AFTER_JOBS jobs more on the new leader.  In 13a the new
+    leader placed the whole burst before the old one's shutdown returned,
+    so the launch counts and the survivors' full uploads are zeroed only
+    then, and the later jobs go in with the server quiet, each of their
+    dispatches whole in the counts (``launches_fn(k)`` reads them before
+    and after).  Times each follower's first ``sync_method`` of its
+    matrix and its quorum writes.  Checks that every acknowledged eval
+    and every later one completes, that no member but the new leader
+    dispatched after the shutdown returned, and that every job is on
+    every survivor.  Returns the failover's record, ``full`` the full
+    uploads of each survivor's matrix since the burst began."""
+    import threading
+
+    from nomad_tpu_torch.ops import kernels as k
+
+    live = list(live)
+    members = list(live)
+    old = leader_agent(live)
+    followers = [a for a in live if a is not old]
+    syncs = {id(a): {} for a in followers}
+    writes = {id(a): {} for a in followers}
+    rows = {id(a): dict(a.server.matrix.row_of) for a in followers}
+    start = {id(a): a.server.matrix.full_uploads for a in followers}
+    for a in followers:
+        timed_first_sync(a.server.matrix, syncs[id(a)], sync_method)
+        timed_replicate(a.server.replicator, writes[id(a)])
+    jobs = [service_job(i) for i in range(SERVER_JOBS)]
+    sub = Submitter(jobs, lambda leader, i: leader.server.submit_job(
+        jobs[i]).id, lambda: leader_agent(live))
+    t_start = time.perf_counter()
+    sub.start()
+    if before_kill is not None:
+        before_kill(old, sub)
+    wait_for(lambda: len(sub.acked) >= kill_at,
+             f"{label}: {kill_at} submits acknowledged",
+             timeout_s=REPL_WAIT_S)
+    t_kill = time.perf_counter()
+    live.remove(old)
+    marks: dict = {}
+
+    def watch():
+        while time.perf_counter() - t_kill < REPL_WAIT_S:
+            new = leader_agent(live)
+            if new is not None:
+                marks.setdefault("elected", time.perf_counter())
+                if new.server.plan_applier.plans_applied:
+                    marks["placed"] = time.perf_counter()
+                    return
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    old.shutdown()
+    out["shutdown_s"] = time.perf_counter() - t_kill
+    # From here on only a survivor can launch.
+    k.reset_counts()
+    uploads0 = {id(a): a.server.matrix.full_uploads for a in live}
+    for a in live:
+        a.server.matrix.full_uploads = 0
+    dispatched = {id(a): a.server.coalescer.dispatches for a in members}
+    fused0 = {id(a): a.server.coalescer.fused_dispatches for a in live}
+    sub.join()
+    watcher.join(timeout=REPL_WAIT_S)
+    new = leader_agent(live)
+    if new is None or "placed" not in marks:
+        raise AssertionError(f"{label}: no survivor placed after the leader "
+                             f"went down ({repl_state(live)})")
+    other = next(a for a in live if a is not new)
+    out["election_s"] = marks["elected"] - t_kill
+    out["first_placement_s"] = marks["placed"] - t_kill
+    srv = new.server
+    evals = [SimpleNamespace(id=e) for e in sub.acked.values()]
+    wait_for(lambda: all((ev := last_eval(srv, e.id)) is not None
+                         and ev.status == "complete" for e in evals),
+             f"{label}: every acknowledged eval complete",
+             timeout_s=REPL_WAIT_S)
+    out["burst_s"] = time.perf_counter() - t_start
+    out["evals_per_s"] = SERVER_JOBS / out["burst_s"]
+    wait_quiet(srv, label)
+    mid, d0 = launches_fn(k), srv.coalescer.dispatches
+    after_jobs = [service_job(SERVER_JOBS + i) for i in range(REPL_AFTER_JOBS)]
+    t0 = time.perf_counter()
+    after = [srv.submit_job(j) for j in after_jobs]
+    wait_terminal(srv, after, REPL_WAIT_S)
+    out["after_evals_per_s"] = REPL_AFTER_JOBS / (time.perf_counter() - t0)
+    wait_quiet(srv, f"{label} after")
+    launches = launches_fn(k)
+    for a in members:
+        if a is not new and a.server.coalescer.dispatches != dispatched[
+                id(a)]:
+            raise AssertionError(
+                f"{label}: {a.config.name} dispatched after the old "
+                f"leader's shutdown returned ({dispatched[id(a)]} -> "
+                f"{a.server.coalescer.dispatches})")
+    jobs += after_jobs
+    for a in live:
+        for i, job in enumerate(jobs):
+            if a.server.store.job_by_id(job.namespace, job.id) is None:
+                raise AssertionError(f"{label}: acknowledged job {i} "
+                                     f"missing on {a.config.name}")
+    out["retries"] = dict(sub.retries)
+    return SimpleNamespace(
+        new=new, other=other, old=old, jobs=jobs, evals=evals + after,
+        after=after, launches=launches, mid=mid,
+        dispatches=srv.coalescer.dispatches - d0,
+        fused=srv.coalescer.fused_dispatches - fused0[id(new)],
+        first_sync=syncs[id(new)], writes=writes[id(new)],
+        rows=rows[id(new)],
+        full={a.config.name: uploads0[id(a)] - start[id(a)]
+              + a.server.matrix.full_uploads for a in live})
+
+
 def repl_in_process(card: str, out: dict) -> None:
     """13a: three in-process server agents at full width; the cluster
     grows from one, the joiners catch up by snapshot, and the leader is
     shut down mid-burst."""
-    import threading
-    from types import SimpleNamespace
-
-    from nomad_tpu_torch.ops import kernels as k
-
     tmp = tempfile.mkdtemp(prefix="nomad-repl-")
     ports = free_ports(REPL_SERVERS)
     addrs = [f"http://127.0.0.1:{p}" for p in ports]
     agents: list = []
     try:
-        t0 = time.perf_counter()
-        first = repl_agent(0, ports[0], [], raft=True)
-        agents.append(first)
-        first.start()
-        wait_for(lambda: first.server.replicator.is_leader,
-                 "the lone server to lead", timeout_s=REPL_WAIT_S)
-        usage = seeded_usage(N_NODES)
-        for i in range(N_NODES):
-            first.server.register_node(reserved_node(i, usage[i]))
-        out["register_s"] = time.perf_counter() - t0
-        installs: list = []
-        for i in (1, 2):
-            joined = cli_ok(tmp, "--address", addrs[0], "server", "join",
-                            addrs[i])
-            if addrs[i] not in joined:
-                raise AssertionError(f"replicated: `server join` said {joined}")
-            t0 = time.perf_counter()
-            a = repl_agent(i, ports[i], [addrs[0]], raft=True)
-            timed_install(a.server, installs)
-            agents.append(a)
-            a.start()
-            leader_rep = first.server.replicator
-            repl_wait(agents, lambda a=a: (
-                a.server.replicator.snapshots_installed >= 1
-                and len(a.server.store.nodes) == N_NODES
-                and a.server.replicator.leader_addr == addrs[0]
-                and leader_rep.peers[addrs[i]].healthy
-                and not leader_rep._installing(addrs[i])),
-                f"server-{i} caught up")
-            out[f"catch_up_{i}_s"] = time.perf_counter() - t0
-        repl_wait(agents, lambda: all(len(a.server.replicator.peers) == 2
-                                      for a in agents),
-                  "three members on every server")
-        if first.server.coalescer.dispatches or any(
-                a.server.coalescer.dispatches for a in agents[1:]):
-            raise AssertionError("replicated: a server dispatched before any "
-                                 "job was submitted")
-        out["install_s"] = installs
+        grow_cluster(lambda i, port, peers: repl_agent(i, port, peers,
+                                                       raft=True),
+                     tmp, ports, agents, "replicated", out)
         members = http_json(addrs[0], "GET", "/v1/agent/members")[1]
         log(f"replicated: 13a grew one server to three (`server join`): "
             f"{N_NODES} nodes with the server phases' usage as reservations "
             f"registered on the lone leader in {out['register_s']:.3f} s; "
             f"each joiner caught up by snapshot install "
-            f"({', '.join(f'{s:.3f}' for s in installs)} s) in "
+            f"({', '.join(f'{s:.3f}' for s in out['install_s'])} s) in "
             f"{out['catch_up_1_s']:.3f} / {out['catch_up_2_s']:.3f} s; "
             f"members {sorted(m['Addr'] for m in members['Members'])} "
             f"(card: {card})")
 
         # The burst: the leader goes down in its middle.
-        syncs = {id(a): {} for a in agents[1:]}
-        writes = {id(a): {} for a in agents[1:]}
-        for a in agents[1:]:
-            timed_first_sync(a.server.matrix, syncs[id(a)])
-            timed_replicate(a.server.replicator, writes[id(a)])
-        live = list(agents)
-        jobs = [service_job(i) for i in range(SERVER_JOBS)]
-
-        def submit(leader, i):
-            return leader.server.submit_job(jobs[i]).id
-
-        sub = Submitter(jobs, submit, lambda: leader_agent(live))
-        t_start = time.perf_counter()
-        sub.start()
-        wait_for(lambda: len(sub.acked) >= REPL_KILL_AT,
-                 "half the burst acknowledged", timeout_s=REPL_WAIT_S)
-        old = leader_agent(live)
-        t_kill = time.perf_counter()
-        live.remove(old)
-        marks: dict = {}
-
-        def watch():
-            while time.perf_counter() - t_kill < REPL_WAIT_S:
-                new = leader_agent(live)
-                if new is not None:
-                    marks.setdefault("elected", time.perf_counter())
-                    if new.server.plan_applier.plans_applied:
-                        marks["placed"] = time.perf_counter()
-                        return
-                time.sleep(0.002)
-
-        watcher = threading.Thread(target=watch, daemon=True)
-        watcher.start()
-        old.shutdown()
-        out["shutdown_s"] = time.perf_counter() - t_kill
-        # From here on only a survivor can launch: the counts are read
-        # after jobs that go in later, and each server's dispatches are
-        # checked.
-        k.reset_counts()
-        dispatched = {id(a): a.server.coalescer.dispatches for a in agents}
-        fused0 = {id(a): a.server.coalescer.fused_dispatches for a in live}
-        sub.join()
-        watcher.join(timeout=REPL_WAIT_S)
-        new = leader_agent(live)
-        if new is None or "placed" not in marks:
-            raise AssertionError(f"replicated: no survivor placed after the "
-                                 f"leader went down ({repl_state(live)})")
-        out["election_s"] = marks["elected"] - t_kill
-        out["first_placement_s"] = marks["placed"] - t_kill
-        srv = new.server
-        evals = [SimpleNamespace(id=e) for e in sub.acked.values()]
-        wait_for(lambda: all(
-            (ev := last_eval(srv, e.id)) is not None
-            and ev.status == "complete" for e in evals),
-            "every acknowledged eval complete", timeout_s=REPL_WAIT_S)
-        out["burst_s"] = time.perf_counter() - t_start
-        out["evals_per_s"] = SERVER_JOBS / out["burst_s"]
-        after_jobs = [service_job(SERVER_JOBS + i)
-                      for i in range(REPL_AFTER_JOBS)]
-        after = Submitter(after_jobs, lambda leader, i: leader.server.submit_job(
-            after_jobs[i]).id, lambda: leader_agent(live))
-        after.start()
-        after.join()
-        evals += [SimpleNamespace(id=e) for e in after.acked.values()]
-        jobs = jobs + after_jobs
-        wait_for(lambda: all(
-            (ev := last_eval(srv, e.id)) is not None
-            and ev.status == "complete" for e in evals),
-            "every eval after the shutdown complete", timeout_s=REPL_WAIT_S)
-        wait_quiet(srv, "replicated")
-        launches = path_launches(k)
-        check_failover_launches(launches, "replicated (13a)")
-        other = next(a for a in live if a is not new)
-        for a in (old, other):
-            if a.server.coalescer.dispatches != dispatched[id(a)]:
-                raise AssertionError(
-                    f"replicated: {a.config.name} dispatched after the old "
-                    f"leader's shutdown returned "
-                    f"({dispatched[id(a)]} -> {a.server.coalescer.dispatches})")
-        if srv.coalescer.fused_dispatches <= fused0[id(new)]:
+        f = burst_across_failover(agents, REPL_KILL_AT, "replicated (13a)",
+                                  out, path_launches)
+        new, other, srv = f.new, f.other, f.new.server
+        check_failover_launches(f.launches, "replicated (13a)")
+        if f.fused <= 0:
             raise AssertionError("replicated: the new leader's coalescer ran "
                                  "no fused dispatch after the old leader's "
                                  "shutdown returned")
         if srv.replicator.snapshots_installed < 1:
             raise AssertionError("replicated: the new leader did not catch "
                                  "up by snapshot")
-        first_sync = syncs[id(new)]
-        if not first_sync.get("full"):
+        if not f.first_sync.get("full"):
             raise AssertionError(f"replicated: the new leader's first sync "
-                                 f"was not a full upload: {first_sync}")
-        for a in live:
-            for i, job in enumerate(jobs):
-                if a.server.store.job_by_id(job.namespace, job.id) is None:
-                    raise AssertionError(f"replicated: acknowledged job {i} "
-                                         f"missing on {a.config.name}")
+                                 f"was not a full upload: {f.first_sync}")
         wait_for(lambda: all(other.server.store.eval_by_id(e.id) is not None
-                             for e in evals)
+                             for e in f.evals)
                  and other.server.store.latest_index == srv.store.latest_index,
                  "the follower caught up with the burst",
                  timeout_s=REPL_WAIT_S)
         wait_for(lambda: other.server.store.to_snapshot_wire()
                  == srv.store.to_snapshot_wire(),
                  "equal images on the survivors", timeout_s=REPL_WAIT_S)
-        burst = check_burst(srv, evals, "replicated (13a)",
+        burst = check_burst(srv, f.evals, "replicated (13a)",
                             n_jobs=SERVER_JOBS + REPL_AFTER_JOBS)
         rows = device_matches_scratch(srv, "replicated (13a)")
-        out["first_sync_ms"] = first_sync["ms"]
-        out["first_sync_bytes"] = first_sync["bytes"]
-        w = writes[id(new)]
-        out["write_quorum_ms"] = w["s"] / w["n"] * 1e3
-        out["writes"] = w["n"]
-        out["retries"] = dict(sub.retries)
-        out["launches"] = launches
+        w = f.writes
+        out.update(first_sync_ms=f.first_sync["ms"],
+                   first_sync_bytes=f.first_sync["bytes"],
+                   write_quorum_ms=w["s"] / w["n"] * 1e3, writes=w["n"],
+                   launches=f.launches)
         log(f"replicated: 13a {SERVER_JOBS} count-{SERVER_COUNT} jobs from "
-            f"{REPL_THREADS} threads, the leader ({old.config.name}) shut down "
-            f"after {REPL_KILL_AT} acknowledged submits (shutdown "
+            f"{REPL_THREADS} threads, the leader ({f.old.config.name}) shut "
+            f"down after {REPL_KILL_AT} acknowledged submits (shutdown "
             f"{out['shutdown_s']:.3f} s); {new.config.name}, caught up by "
             f"snapshot, elected {out['election_s']:.3f} s after and placing "
             f"{out['first_placement_s']:.3f} s after; its first sync a full "
-            f"upload of {first_sync['bytes']} bytes in "
-            f"{first_sync['ms']:.3f} ms; every acknowledged submit on both "
+            f"upload of {f.first_sync['bytes']} bytes in "
+            f"{f.first_sync['ms']:.3f} ms; every acknowledged submit on both "
             f"survivors, every eval complete, equal images, "
             f"{burst['allocs']} fitting allocs ({burst['retried']} retried), "
             f"device matrix equal to a from-scratch one on {rows} rows; "
@@ -6046,7 +6133,7 @@ def repl_in_process(card: str, out: dict) -> None:
             f"the store's write lock; submits retried "
             f"{out['retries']}; {REPL_AFTER_JOBS} jobs more on the new "
             f"leader; launches since the old leader's shutdown returned, "
-            f"all the new leader's: {launches} "
+            f"all the new leader's: {f.launches} "
             f"(card: {card})")
     finally:
         for a in agents:
@@ -6550,15 +6637,15 @@ def sharded_device_us(fn, per_call: int, runs: int = 4, passes: int = 3):
     return None
 
 
-def check_sharded_launches(launches: dict) -> None:
+def check_sharded_launches(launches: dict, label: str = "sharded") -> None:
     """The sharded burst placed through ``sharded_place`` and the windowed
     ``allocs_fit_verify``, never a plain version or the unsharded path."""
     if (launches["sharded_place"] <= 0
             or launches["allocs_fit_verify_window"] <= 0):
-        raise AssertionError(f"sharded: a kernel never launched: {launches}")
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
     if launches["plain"] or launches["fused_place"] or launches[
             "allocs_fit_verify"]:
-        raise AssertionError(f"sharded: a plain version or the unsharded "
+        raise AssertionError(f"{label}: a plain version or the unsharded "
                              f"path ran: {launches}")
 
 
@@ -7531,6 +7618,26 @@ def device_bits_equal(got, want, label: str) -> None:
             raise AssertionError(f"{label}: device field {f} differs")
 
 
+def resident_fresh(srv, label: str) -> None:
+    """The server's mesh-resident matrix, synced, equals a from-scratch
+    ``shard_matrix_arrays`` of its host arrays, bit for bit on every
+    shard of every batch row."""
+    from nomad_tpu_torch.parallel.sharding import shard_matrix_arrays
+    from nomad_tpu_torch.state.matrix import DEVICE_LOCK, DeviceArrays
+
+    mx, mesh = srv.matrix, srv.coalescer._mesh
+    with DEVICE_LOCK:
+        resident = mx.sync_sharded(mesh)
+        with mx._host_lock:
+            host = DeviceArrays(**{f: mx.snapshot_host()[f].copy()
+                                   for f in DeviceArrays._fields})
+        fresh = shard_matrix_arrays(mesh, host)
+    for i, row in enumerate(resident.shards):
+        for j, sh in enumerate(row):
+            device_bits_equal(sh, fresh.shards[i][j],
+                              f"{label} resident shard ({i}, {j})")
+
+
 def fused_operand_bytes(co, sharded: bool) -> int:
     """The bytes one fused dispatch of ``co`` uploads, from its shapes:
     the (max_lanes, ...) staging buffers and the packed requests; a
@@ -7741,10 +7848,7 @@ def cache_sharded(card: str, tmp: str, nodes, path: str, out: dict) -> None:
     """16a and 16b with ``shard_count`` 4 on four node shards of the
     card, and ``top``'s shard line."""
     from nomad_tpu_torch.obs.top import render
-    from nomad_tpu_torch.parallel.sharding import shard_matrix_arrays
-    from nomad_tpu_torch.state.matrix import (
-        DEVICE_LOCK, DeviceArrays, NodeMatrix,
-    )
+    from nomad_tpu_torch.state.matrix import NodeMatrix
 
     m = NodeMatrix(capacity=16, device=CACHE_DEVICE)
     if not m.load_encoded(path):
@@ -7773,17 +7877,7 @@ def cache_sharded(card: str, tmp: str, nodes, path: str, out: dict) -> None:
         if moved or mx.shard_row_counts() != counts:
             raise AssertionError(f"16a x4: {len(moved)} nodes left their "
                                  f"home shard")
-        with DEVICE_LOCK:
-            resident = mx.sync_sharded(srv.coalescer._mesh)
-            with mx._host_lock:
-                host = DeviceArrays(**{
-                    f: mx.snapshot_host()[f].copy()
-                    for f in DeviceArrays._fields})
-            fresh = shard_matrix_arrays(srv.coalescer._mesh, host)
-        for i, row in enumerate(resident.shards):
-            for j, sh in enumerate(row):
-                device_bits_equal(sh, fresh.shards[i][j],
-                                  f"16a x4 resident shard ({i}, {j})")
+        resident_fresh(srv, "16a x4")
         if mx.full_uploads != 1:
             raise AssertionError(f"16a x4: {mx.full_uploads} full lay-outs")
         lines = [ln for ln in render(srv.metrics.snapshot(), None,
@@ -7887,6 +7981,533 @@ def phase_cache(card: str, results: dict) -> None:
         f" (card: {card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: node-sharded members of a replicated cluster
+# ---------------------------------------------------------------------------
+
+SCL_DEVICE = "cuda:0"  # each member's coalescer spans SCL_MESH of it
+SCL_MESH = 8  # two batch rows by four node shards (make_mesh)
+SCL_SHARDS = 4
+SCL_JOINS = 16  # nodes registered through the new leader after 17a's burst
+SCL_EVACUATE_AT = SERVER_JOBS // 4  # 17b: acknowledged submits first
+SCL_RING = 4  # 17b: the log ring while the leader is cut off
+SCL_CUT_NODES = 8  # 17b: registrations while it is cut off, past the ring
+# 17a's system job runs on one rack of 32 (about 313 nodes).  On all
+# 10,009 nodes its one plan is one replicated entry of 10,009 allocs,
+# whose apply on the follower outlasts the leader's 1.5 s append window:
+# the leader loses its quorum and steps down, in the reference as in the
+# port (tests/torch_large_plan.py).
+SCL_RACK = "r5"
+
+
+def scl_agent(i: int, port: int, peers):
+    """A member of phase 17's cluster: 13a's server agent with its
+    coalescer over ``[SCL_DEVICE] * SCL_MESH``."""
+    return repl_agent(i, port, peers, raft=True,
+                      device=[SCL_DEVICE] * SCL_MESH)
+
+
+def scl_launches(k) -> dict:
+    """The counts phase 17 reads: the node-sharded path's kernels, the
+    unsharded path's, the system kernel and every plain version."""
+    return {
+        "sharded_place": k.sharded_place.launches,
+        "allocs_fit_verify_window": k.allocs_fit_verify.window_launches,
+        "sharded_usage": k.sharded_usage.launches,
+        "system_feasible": k.system_feasible.launches,
+        "fused_place": k.fused_place.launches,
+        "allocs_fit_verify": k.allocs_fit_verify.launches,
+        "plain": (k.sharded_place_plain.calls + k.place_lanes.calls
+                  + k.verify_lanes.calls + k.sharded_usage_plain.calls
+                  + k.system_feasible_plain.calls),
+    }
+
+
+def scl_own_mesh(srv, label: str) -> None:
+    """The server dispatches over four node shards of its own full mesh:
+    no evacuation of another member carried over, the capacity its
+    config's."""
+    co, mx = srv.coalescer, srv.matrix
+    if (mx.shard_count != SCL_SHARDS or co._mesh is None
+            or co._mesh.shape != (2, SCL_SHARDS)
+            or co._pre_evac_shards is not None
+            or mx.capacity != CAPACITY):
+        raise AssertionError(f"{label}: {mx.shard_count} home shards, mesh "
+                             f"{co._mesh}, evacuated from "
+                             f"{co._pre_evac_shards}, capacity "
+                             f"{mx.capacity}")
+
+
+def scl_failover(card: str, live: list, kill_at: int, label: str,
+                 out: dict, before_kill=None):
+    """13a's burst across the leader's shutdown (``burst_across_failover``)
+    on the sharded members.  Checks the new leader's first sharded sync
+    (one full lay-out; the other survivor none), its own mesh, its rows
+    kept where it claimed them as a follower, that it alone launched the
+    sharded kernels (exactly P + 1 ``sharded_place`` launches a dispatch
+    over the later jobs), each job's allocs on nodes that fit, and its
+    resident copy.  Returns (the new leader, the other survivor, the old
+    leader)."""
+    f = burst_across_failover(live, kill_at, label, out, scl_launches,
+                              "_sync_sharded_locked", before_kill)
+    new, other, srv = f.new, f.other, f.new.server
+    check_sharded_launches(f.launches, label)
+    per = {n: (f.launches[n] - f.mid[n]) / f.dispatches
+           for n in ("sharded_place", "allocs_fit_verify_window")}
+    if per["sharded_place"] != SCAN + 1:
+        raise AssertionError(f"{label}: {per} launches a dispatch over "
+                             f"{f.dispatches} dispatches, not {SCAN + 1}")
+    first = f.first_sync
+    if not first.get("full") or f.full[new.config.name] != 1 or f.full[
+            other.config.name] != 0:
+        raise AssertionError(f"{label}: the new leader's first sharded sync "
+                             f"{first}; full uploads since the burst began "
+                             f"{f.full}")
+    scl_own_mesh(srv, label)
+    if srv.matrix.row_of != f.rows:
+        raise AssertionError(f"{label}: the new leader re-homed rows")
+    n_allocs = 0
+    for job in f.jobs:
+        allocs = live_allocs(srv, job.id)
+        if len(allocs) != SERVER_COUNT or any(
+                srv.store.node_by_id(x.node_id) is None for x in allocs):
+            raise AssertionError(f"{label}: {job.id} holds {len(allocs)} "
+                                 f"allocs")
+        n_allocs += len(allocs)
+    check_capacity(srv, label)
+    resident_fresh(srv, label)
+    out.update(first_sync_ms=first["ms"], first_sync_bytes=first["bytes"],
+               first_sync_device_bytes=first["device_bytes"],
+               launches=f.launches, launches_per_dispatch=per["sharded_place"],
+               window_per_dispatch=per["allocs_fit_verify_window"],
+               allocs=n_allocs, retried=retried_evals(srv, f.after))
+    log(f"{label}: {SERVER_JOBS} count-{SERVER_COUNT} jobs from "
+        f"{REPL_THREADS} threads, the leader ({f.old.config.name}) shut down "
+        f"after {kill_at} acknowledged submits (shutdown "
+        f"{out['shutdown_s']:.3f} s); {new.config.name} elected "
+        f"{out['election_s']:.3f} s after and placing "
+        f"{out['first_placement_s']:.3f} s after, on its own mesh "
+        f"{srv.coalescer._mesh.shape} of {SCL_SHARDS} home shards (rows "
+        f"kept where it claimed them: {srv.matrix.shard_row_counts()}); its "
+        f"first sharded sync one full lay-out in {first['ms']:.3f} ms: "
+        f"{first['bytes']} host bytes counted, {first['device_bytes']} "
+        f"bytes written to the card (every shard on both batch rows); "
+        f"{other.config.name} dispatched nothing; every acknowledged eval "
+        f"complete; burst {out['evals_per_s']:.1f} evals/s across the "
+        f"failover; {REPL_AFTER_JOBS} jobs more in {f.dispatches} "
+        f"dispatches ({out['after_evals_per_s']:.1f} evals/s), "
+        f"{per['sharded_place']:.0f} sharded_place launches and "
+        f"{per['allocs_fit_verify_window']:.0f} windowed verifies a "
+        f"dispatch (P + 1 = {SCAN + 1} on one card); {n_allocs} fitting "
+        f"allocs; the resident copy equal to a from-scratch lay-out bit "
+        f"for bit; submits retried {out['retries']}; launches since the "
+        f"shutdown returned {f.launches} (card: {card})")
+    return new, other, f.old
+
+
+def elect(agent, label: str) -> None:
+    """Make ``agent`` the leader: it campaigns until it wins (a member
+    whose log is as long as the leader's wins the vote), then its leader
+    services come up."""
+    rep = agent.server.replicator
+    deadline = time.perf_counter() + REPL_WAIT_S
+    while not (rep.is_leader and agent.server._leader):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{label}: {agent.config.name} not elected "
+                                 f"in {REPL_WAIT_S:.0f} s")
+        if not rep.is_leader:
+            rep._campaign()
+        time.sleep(0.2)
+
+
+def scl_cut_install(card: str, cut, rest: list, out: dict) -> None:
+    """17b: ``cut``, the leader of four home shards, is cut off from the
+    other members (every raft message to or from it dropped) while the
+    log ring holds SCL_RING entries; they elect a leader, which takes
+    SCL_CUT_NODES registrations, more than the ring holds.  Once the cut
+    heals, the leader installs its image into ``cut``'s four-shard
+    matrix (a leader elected meanwhile can send another).  Then ``cut``
+    leads again.  Checks: every row homed as a from-scratch four-shard
+    restore of the same image homes it, the mesh kept, the first sharded
+    sync a full lay-out over it, no more full lay-outs than installs,
+    and the resident copy equal to a from-scratch one bit for bit."""
+    from nomad_tpu_torch.chaos.injector import FaultSpec, injected
+    from nomad_tpu_torch.server import replication
+    from nomad_tpu_torch.state.matrix import NodeMatrix
+    from nomad_tpu_torch.state.store import StateStore
+
+    srv, everyone = cut.server, [cut] + rest
+    rep, co, mx = srv.replicator, srv.coalescer, srv.matrix
+    if mx.shard_count != SCL_SHARDS or co._mesh is None:
+        raise AssertionError(f"17b: {cut.config.name} leads with "
+                             f"{mx.shard_count} home shards")
+    mesh, installs0 = co._mesh, rep.snapshots_installed
+    ring = replication.LOG_RING_CAPACITY
+    replication.LOG_RING_CAPACITY = SCL_RING
+    t0 = time.perf_counter()
+    try:
+        drops = [FaultSpec("raft.send", "drop", match={"dst": cut.rpc_addr}),
+                 FaultSpec("raft.send", "drop", match={"src": rep.id})]
+        with injected(0, drops):
+            wait_for(lambda: not rep.is_leader and not srv._leader,
+                     "17b: the cut leader steps down", timeout_s=REPL_WAIT_S)
+            wait_for(lambda: leader_agent(rest) is not None,
+                     "17b: a leader among the others", timeout_s=REPL_WAIT_S)
+            lead = leader_agent(rest)
+            for i in range(SCL_CUT_NODES):
+                lead.server.register_node(server_node(N_NODES + 32 + i))
+            out["cut_leader"] = lead.config.name
+            out["cut_s"] = time.perf_counter() - t0
+            # The rings hold the last SCL_RING entries now: the cut member
+            # needs an image, and a write during its install is re-sent.
+            replication.LOG_RING_CAPACITY = ring
+        t_heal = time.perf_counter()
+        repl_wait(everyone, lambda: (
+            rep.snapshots_installed > installs0
+            and leader_agent(rest) is not None
+            and srv.store.to_snapshot_wire()
+            == leader_agent(rest).server.store.to_snapshot_wire()),
+            "17b: the healed member's install")
+        out["heal_to_install_s"] = time.perf_counter() - t_heal
+    finally:
+        replication.LOG_RING_CAPACITY = ring
+    counts = mx.shard_row_counts()
+    rows, uploads, d0 = dict(mx.row_of), mx.full_uploads, co.dispatches
+    first: dict = {}
+    timed_first_sync(mx, first, "_sync_sharded_locked")
+    elect(cut, "17b")
+    jobs = [service_job(SERVER_JOBS + REPL_AFTER_JOBS + i)
+            for i in range(REPL_AFTER_JOBS)]
+    wait_terminal(srv, [srv.submit_job(j) for j in jobs], REPL_WAIT_S)
+    wait_quiet(srv, "17b install")
+    # Every install homed the rows as a four-shard restore of the image
+    # does, and kept the mesh; each full lay-out followed one.
+    twin = StateStore(matrix=NodeMatrix(capacity=CAPACITY, device="cpu"))
+    twin.matrix.set_shard_count(SCL_SHARDS)
+    twin.restore(srv.store.to_snapshot_wire(), [])
+    installs = rep.snapshots_installed - installs0
+    full = mx.full_uploads - uploads
+    if (mx.shard_count != SCL_SHARDS or mx.row_of != twin.matrix.row_of
+            or mx.row_of != rows or co._mesh is not mesh):
+        raise AssertionError(f"17b: after {installs} install(s) "
+                             f"{mx.shard_count} home shards, rows as a "
+                             f"four-shard restore "
+                             f"{mx.row_of == twin.matrix.row_of}, kept at "
+                             f"the dispatch {mx.row_of == rows}, the mesh "
+                             f"kept {co._mesh is mesh}")
+    if co.dispatches == d0 or not first.get("full") or not (
+            1 <= full <= installs):
+        raise AssertionError(f"17b: {co.dispatches - d0} dispatches, {full} "
+                             f"full lay-outs and {installs} installs since "
+                             f"the cut, first sync {first}")
+    if leader_agent(everyone) is not cut:
+        raise AssertionError(f"17b: {cut.config.name} no longer leads "
+                             f"({repl_state(everyone)})")
+    scl_own_mesh(srv, "17b install")
+    resident_fresh(srv, "17b install")
+    out.update(install_into_sharded_rows=counts, installs=installs,
+               install_full_layouts=full,
+               install_first_sync_ms=first["ms"],
+               install_first_sync_device_bytes=first["device_bytes"])
+    log(f"17b cut: {cut.config.name} (leader, {SCL_SHARDS} home shards) cut "
+        f"off by raft.send drops with a log ring of {SCL_RING}; "
+        f"{out['cut_leader']} led and took {SCL_CUT_NODES} registrations; "
+        f"{out['heal_to_install_s']:.3f} s from the heal to an install into "
+        f"the four-shard matrix ({installs} in all; rows homed as a "
+        f"from-scratch four-shard restore: {counts}; the mesh kept; {full} "
+        f"full lay-out(s)); {cut.config.name} elected again, its first "
+        f"sharded sync a full lay-out in "
+        f"{first['ms']:.3f} ms over the mesh it had, {REPL_AFTER_JOBS} jobs "
+        f"placed, the resident copy equal to a from-scratch lay-out bit for "
+        f"bit (card: {card})")
+
+
+def scl_step(srv, card: str, out: dict) -> None:
+    """``sharded_schedule_step`` (the only path of ``sharded_usage``: the
+    coalescer's dispatches do not run the step, in either package) over
+    the new leader's own mesh and resident copy: LANES lanes of the
+    burst's jobs, held against ``score_batch`` on its dense copy, and the
+    step's usage against the host usage plus the picks' asks, exactly.
+    The counts are zeroed just before the step and read at its return."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.ops.encode import (
+        MAX_SPREAD_VALUES, MAX_SPREADS, RequestEncoder, pow2_bucket,
+    )
+    from nomad_tpu_torch.parallel import sharding
+    from nomad_tpu_torch.state.matrix import DEVICE_LOCK
+
+    mx, mesh = srv.matrix, srv.coalescer._mesh
+    enc = RequestEncoder(mx)
+    reqs = [enc.compile(j, j.task_groups[0]).request
+            for j in (service_job(i) for i in range(LANES))]
+    ri, rf = k.pack_requests(type(reqs[0])(*[np.stack(f)
+                                             for f in zip(*reqs)]))
+    n = mx.capacity
+    ops = (np.zeros((LANES, n), np.int32),
+           np.zeros((LANES, MAX_SPREADS, MAX_SPREAD_VALUES), np.float32),
+           np.zeros((LANES, n), bool), ri, rf,
+           np.ones((LANES, pow2_bucket(max(1, len(mx.class_ids)))), bool),
+           np.ones((LANES, n), bool))
+    with DEVICE_LOCK:
+        sharded = mx.sync_sharded(mesh)
+        arrays = mx.sync()
+        with mx._host_lock:
+            used = mx.snapshot_host()["used"].copy()
+        k.reset_counts()
+        res, used_after = sharding.sharded_schedule_step(mesh)(sharded, *ops)
+        launches = scl_launches(k)
+        dev = arrays.used.device
+        want = k.score_batch(arrays, arrays.used, *(
+            torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in ops))
+    if launches["sharded_usage"] != SCL_MESH or launches["plain"]:
+        raise AssertionError(f"17a step: launches {launches}")
+    exact("17a step", k.pack_batch_result(res), k.pack_batch_result(want))
+    ask = k.REQ_FLOAT_OFF["ask"][0]
+    want_used = torch.from_numpy(step_usage(
+        used, want.rows.cpu(), rf[:, ask:ask + 3], mesh.shape[0]))
+    for i, row in enumerate(used_after):
+        exact(f"17a step usage (batch row {i})",
+              torch.cat([u.cpu() for u in row]), want_used)
+    picks = int((want.rows.cpu() >= 0).sum())
+    out["step_launches"] = launches
+    log(f"17a step: sharded_schedule_step over the new leader's mesh "
+        f"{mesh.shape} and resident copy, {LANES} lanes ({picks} picks): "
+        f"equal to score_batch on its dense copy, and each shard's usage "
+        f"(sharded_usage, {launches['sharded_usage']} launches) equal to "
+        f"the host usage plus the picks' asks, exactly; no plain version "
+        f"(card: {card})")
+
+
+def timed_plan_write(leader, follower, out: dict) -> None:
+    """Record each replicated write of a plan on ``leader`` (its seconds
+    and allocs, as ``out["writes"]``) and each apply of one on
+    ``follower`` (seconds, ``out["applies"]``)."""
+    replicate = leader.replicator.replicate
+    apply_remote = follower.store.apply_remote
+
+    def plan_allocs(entry) -> int:
+        return len(entry["a"]["args"][0])  # upsert_plan_results(allocs, ...)
+
+    def traced_write(entry):
+        if entry["op"] != "upsert_plan_results":
+            return replicate(entry)
+        t0 = time.perf_counter()
+        replicate(entry)
+        out.setdefault("writes", []).append(
+            (time.perf_counter() - t0, plan_allocs(entry)))
+        return None
+
+    def traced_apply(entry):
+        if entry["op"] != "upsert_plan_results":
+            return apply_remote(entry)
+        t0 = time.perf_counter()
+        apply_remote(entry)
+        out.setdefault("applies", []).append(time.perf_counter() - t0)
+        return None
+
+    leader.replicator.replicate = traced_write
+    follower.store.apply_remote = traced_apply
+
+
+def scl_after(card: str, new, other, out: dict) -> None:
+    """17a after the burst: SCL_JOINS nodes registered through the new
+    leader onto the least-claimed shards and scattered into its resident
+    copy, a system job on exactly its nodes through ``system_feasible``,
+    and the step."""
+    from nomad_tpu_torch.ops import kernels as k
+    from nomad_tpu_torch.structs.types import Constraint
+
+    srv, mx = new.server, new.server.matrix
+    uploads = mx.full_uploads
+    counts0 = mx.shard_row_counts()
+    want = list(counts0)
+    for i in range(SCL_JOINS):
+        node = server_node(N_NODES + i)
+        srv.register_node(node)
+        s = min(range(len(want)), key=lambda j: (want[j], j))
+        want[s] += 1
+        if mx.home_shard(mx.row_of[node.id]) != s:
+            raise AssertionError(f"17a: joined node {i} on shard "
+                                 f"{mx.home_shard(mx.row_of[node.id])}, the "
+                                 f"least-claimed was {s}")
+    counts1 = mx.shard_row_counts()
+    if counts1 != want:
+        raise AssertionError(f"17a: shard rows {counts1}, expected {want}")
+    resident_fresh(srv, "17a joins")
+    if mx.full_uploads != uploads:
+        raise AssertionError(f"17a: the joins took "
+                             f"{mx.full_uploads - uploads} full lay-outs")
+    exporter = system_jobs()[0]
+    exporter.task_groups[0].constraints = [Constraint(
+        l_target="${attr.rack}", operand="=", r_target=SCL_RACK)]
+    k.reset_counts()
+    targets = system_targets(
+        srv, exporter, lambda n: n.attributes.get("rack") == SCL_RACK)
+    plan: dict = {}
+    timed_plan_write(srv, other.server, plan)
+    out["system_s"] = run_system_job(srv, exporter, targets, "17a system")
+    sys_launches = scl_launches(k)
+    if sys_launches["system_feasible"] <= 0 or sys_launches["plain"]:
+        raise AssertionError(f"17a system: launches {sys_launches}")
+    wait_quiet(srv, "17a system")
+    check_capacity(srv, "17a")
+    scl_step(srv, card, out)
+    wait_for(lambda: other.server.store.to_snapshot_wire()
+             == srv.store.to_snapshot_wire(), "17a: equal images",
+             timeout_s=REPL_WAIT_S)
+    if len(plan.get("writes", ())) != 1 or len(plan.get("applies", ())) != 1:
+        raise AssertionError(f"17a system: plan writes {plan}")
+    write_s, n_allocs = plan["writes"][0]
+    apply_s = plan["applies"][0]
+    out.update(system_launches=sys_launches, rows_before=counts0,
+               rows_after=counts1, system_nodes=len(targets),
+               plan_allocs=n_allocs, plan_write_s=write_s,
+               plan_follower_apply_s=apply_s)
+    log(f"17a after: shard rows {counts0} -> "
+        f"{counts1} after {SCL_JOINS} joins, each on the least-claimed "
+        f"shard, scattered into the resident copy (still one full "
+        f"lay-out); node-exporter on exactly its {len(targets)} nodes "
+        f"(rack {SCL_RACK}) in "
+        f"{out['system_s']:.3f} s through system_feasible; its plan of "
+        f"{n_allocs} allocs one replicated write of {write_s:.3f} s, "
+        f"{apply_s:.3f} s of it the follower's apply "
+        f"({apply_s / n_allocs * 1e3:.4f} ms an alloc) "
+        f"({sys_launches['system_feasible']} launches, no plain version); "
+        f"equal images on both survivors (card: {card})")
+
+
+def phase_sharded_cluster(card: str, results: dict) -> None:
+    """Phase 17: three server agents, each over ``[SCL_DEVICE] * 8``
+    (four node shards), as members of one replicated cluster at 10,000
+    nodes.  17a: the leader goes down mid-burst and a follower that never
+    led, its rows claimed densely from the stream, homes its matrix and
+    lays its mesh out in full at its first dispatch.  17b: the shut-down
+    member comes back by ``server join`` and a snapshot install; the
+    leader is cut off, falls behind the log ring, installs the next
+    leader's image into its four-shard matrix and leads again; it
+    evacuates node shard 1 mid-burst and goes down, and the next leader
+    places on four shards of its own mesh."""
+    out = results.setdefault("sharded_cluster", {})
+    a_out, b_out = out.setdefault("17a", {}), out.setdefault("17b", {})
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="nomad-scl-")
+    ports = free_ports(REPL_SERVERS)
+    addrs = [f"http://127.0.0.1:{p}" for p in ports]
+    agents: list = []
+    try:
+        grow_cluster(scl_agent, tmp, ports, agents, "17", out)
+        for a in agents:
+            mx = a.server.matrix
+            if (mx.shard_count != 1
+                    or sorted(mx.row_of.values()) != list(range(N_NODES))):
+                raise AssertionError(f"17: {a.config.name} holds other than "
+                                     f"dense rows before the burst")
+        log(f"17: three members over {[SCL_DEVICE] * SCL_MESH} grown from "
+            f"one by `server join`: {N_NODES} nodes registered on the lone "
+            f"leader in {out['register_s']:.3f} s, each joiner caught up by "
+            f"snapshot install "
+            f"({', '.join(f'{s:.3f}' for s in out['install_s'])} s), every "
+            f"member's rows claimed densely, nothing dispatched "
+            f"(card: {card})")
+
+        # 17a: failover onto a follower that never led.
+        t0 = time.perf_counter()
+        new, other, old = scl_failover(card, agents, REPL_KILL_AT, "17a",
+                                       a_out)
+        scl_after(card, new, other, a_out)
+        a_out["seconds"] = time.perf_counter() - t0
+
+        # 17b: the shut-down member back.
+        t0 = time.perf_counter()
+        cur = leader_agent([new, other])
+        if cur is None:
+            raise AssertionError(f"17b: no leader ({repl_state([new, other])})")
+        lead = cur.server.replicator.self_addr
+        joined = cli_ok(tmp, "--address", lead, "server", "join", addrs[0])
+        if addrs[0] not in joined:
+            raise AssertionError(f"17b: `server join` said {joined}")
+        i_old = agents.index(old)
+        installs_b: list = []
+        back = scl_agent(i_old, ports[i_old], [lead])
+        timed_install(back.server, installs_b)
+        agents.append(back)
+        back.start()
+        rep = cur.server.replicator
+        n_nodes = N_NODES + SCL_JOINS
+        live = [new, other, back]
+        repl_wait(live, lambda: (
+            back.server.replicator.snapshots_installed >= 1
+            and len(back.server.store.nodes) == n_nodes
+            and back.server.replicator.leader_addr == lead
+            and rep.peers[addrs[i_old]].healthy
+            and not rep._installing(addrs[i_old])),
+            "17b: the shut-down member caught up")
+        repl_wait(live, lambda: all(
+            len(a.server.replicator.peers) == REPL_SERVERS - 1 for a in live),
+            "17b: three members on every server")
+        b_out["install_s"] = list(installs_b)
+        b_out["rejoin_s"] = time.perf_counter() - t0
+        wait_for(lambda: back.server.store.to_snapshot_wire()
+                 == cur.server.store.to_snapshot_wire(),
+                 "17b: the rejoined member's image", timeout_s=REPL_WAIT_S)
+        log(f"17b: {old.config.name} back by `server join` and a snapshot "
+            f"install ({', '.join(f'{s:.3f}' for s in installs_b)} s) in "
+            f"{b_out['rejoin_s']:.3f} s (card: {card})")
+
+        # The leader cut off, its install into four home shards, and its
+        # lead again.
+        scl_cut_install(card, cur, [a for a in live if a is not cur], b_out)
+
+        # The evacuated leader's handoff.
+        evac: dict = {}
+
+        def evacuate(leader, sub):
+            wait_for(lambda: len(sub.acked) >= SCL_EVACUATE_AT,
+                     "17b: submits before the evacuation",
+                     timeout_s=REPL_WAIT_S)
+            co = leader.server.coalescer
+            d0 = co.fused_dispatches
+            t = time.perf_counter()
+            evac["survivors"] = co.evacuate_shard(1)
+            evac["ms"] = (time.perf_counter() - t) * 1e3
+            wait_for(lambda: co.fused_dispatches > d0 and co._mesh is not None,
+                     "17b: a dispatch on the survivors' mesh",
+                     timeout_s=REPL_WAIT_S)
+            evac["mesh"] = co._mesh.shape
+
+        t_b = time.perf_counter()
+        new2, other2, old2 = scl_failover(card, live, REPL_KILL_AT, "17b",
+                                          b_out, before_kill=evacuate)
+        if old2 is not cur or evac["survivors"] != SCL_SHARDS - 1 or evac[
+                "mesh"] != (2, SCL_SHARDS - 1):
+            raise AssertionError(f"17b: the evacuation {evac}")
+        co = old2.server.coalescer
+        if co._pre_evac_shards != SCL_SHARDS or co.n_device_shards != 6:
+            raise AssertionError("17b: the shut-down leader's evacuation "
+                                 "state changed")
+        wait_for(lambda: other2.server.store.to_snapshot_wire()
+                 == new2.server.store.to_snapshot_wire(),
+                 "17b: equal images", timeout_s=REPL_WAIT_S)
+        b_out.update(evacuation=evac, seconds=time.perf_counter() - t0,
+                     burst_with_evacuation_s=time.perf_counter() - t_b)
+        log(f"17b: {old2.config.name} evacuated node shard 1 after "
+            f"{SCL_EVACUATE_AT} acknowledged submits ({evac['ms']:.3f} ms on "
+            f"the host; a dispatch on the survivors' mesh {evac['mesh']}) "
+            f"and went down; its coalescer keeps the survivors' devices; "
+            f"{new2.config.name} placed the rest on {SCL_SHARDS} shards of "
+            f"its own mesh; equal images (card: {card})")
+    finally:
+        for a in agents:
+            try:
+                a.shutdown()
+            except Exception as exc:  # noqa: BLE001 — stopped already
+                log(f"17: shutdown of {a.config.name}: {exc!r}")
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     import torch
 
@@ -7962,6 +8583,7 @@ def run_phases() -> int:
     timed("sharded", phase_sharded, card, results)
     timed("chaos", phase_chaos, card, results)
     timed("cache", phase_cache, card, results)
+    timed("sharded cluster", phase_sharded_cluster, card, results)
     fused, staged = results["server"], results["staged_server"]
     log(f"bursts: fused {fused['evals_per_s']:.1f} evals/s, "
         f"{fused['refused']} refusals, {fused['retried']} retried; staged "
@@ -8005,6 +8627,19 @@ def run_phases() -> int:
         f"processes: SIGKILL -> election {repl['proc_election_s']:.3f} s, "
         f"burst {repl['proc_evals_per_s']:.1f} evals/s; phase "
         f"{repl['phase_s']:.1f} s (card: {card})")
+    scl = results["sharded_cluster"]
+    sa, sb = scl["17a"], scl["17b"]
+    log(f"sharded cluster: installs "
+        f"{', '.join(f'{s:.3f}' for s in scl['install_s'] + sb['install_s'])}"
+        f" s; 17a shutdown -> election {sa['election_s']:.3f} s, -> first "
+        f"placement {sa['first_placement_s']:.3f} s, the new leader's first "
+        f"sharded sync {sa['first_sync_ms']:.3f} ms ({sa['first_sync_bytes']} "
+        f"bytes), burst {sa['evals_per_s']:.1f} evals/s, "
+        f"{sa['launches_per_dispatch']:.0f} sharded_place launches a "
+        f"dispatch; 17b shutdown -> election {sb['election_s']:.3f} s, -> "
+        f"first placement {sb['first_placement_s']:.3f} s, first sharded "
+        f"sync {sb['first_sync_ms']:.3f} ms, burst {sb['evals_per_s']:.1f} "
+        f"evals/s; phase {scl['phase_s']:.1f} s (card: {card})")
 
     sources = {
         "fused_place": ("nomad_tpu_torch/ops/csrc/fused_place.cu",

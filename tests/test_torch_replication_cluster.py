@@ -8,9 +8,11 @@ snapshot and by re-send; the raft RPCs' peer check answers as the
 reference's; a cluster grows from one server, survives the loss of its
 leader and ``remove-peer``; a leader lost while its image transfer to a
 joiner hangs is replaced by the member in step, which installs the
-joiner itself; ``FailoverRPC`` follows the new leader; and
+joiner itself; ``FailoverRPC`` follows the new leader;
 after a failover the new leader places onto the nodes a reference server
-restored from the same image picks.
+restored from the same image picks; and a system plan acknowledged past
+the leader's append window costs each package's leader its quorum alike
+(``torch_large_plan``).
 
 Every wait is on a condition with its own deadline; the raft timers run
 at the test suite's 2.0 scale (``tests/conftest.py``).
@@ -39,7 +41,9 @@ from nomad_tpu_torch.server.replication import NotLeaderError
 from nomad_tpu_torch.server.server import ServerConfig
 from test_torch_replication import (CAPACITY, JAX, PORT, WAIT, seeded_job,
                                     seeded_node)
-from torch_parity import free_ports, http, mask, settle_agent, wait_until
+from torch_large_plan import large_system_plan
+from torch_parity import (at_lowest_priority, free_ports, http, mask,
+                          settle_agent, wait_until)
 
 torch.set_num_threads(1)
 
@@ -523,3 +527,19 @@ def test_new_leader_places_as_a_reference_server_restored_from_its_image():
             ref.shutdown()
     finally:
         shutdown_all(agents)
+
+
+@at_lowest_priority
+def test_a_plan_acked_past_the_append_window_costs_both_leaders_alike():
+    """A system job on every node of a cluster whose leader has one live
+    peer; that follower's apply of the plan is held past the leader's
+    append window.  In both packages the plan's write raises and the
+    issuer steps down for its lost replication quorum; the follower,
+    which applied the plan, is elected and holds the job on every node
+    once, with both live images equal, and the eval completes."""
+    got = {pkg: large_system_plan(pkg, hold=True)[0] for pkg in (JAX, PORT)}
+    assert got[JAX] == {
+        "plan_acked_first": "ReplicationError",
+        "issuer_lost_replication_quorum": True, "settled": True,
+        "leads_after": "follower", "eval": "complete"}
+    assert got[PORT] == got[JAX]

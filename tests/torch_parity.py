@@ -6,9 +6,12 @@ Sizes stay small (≤ 256 nodes, ≤ 8 lanes, ≤ 4 placements) so the suite
 runs in seconds on the CPU.
 """
 
+import functools
 import json
+import os
 import re
 import socket
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -357,6 +360,36 @@ def agent_pair(tmp_path, client=True, **server_kw):
             agent.shutdown()
 
 
+def at_lowest_priority(test):
+    """Run ``test`` in a thread of its own in Linux's idle scheduling
+    class (``SCHED_IDLE``), so that a whole run's other workers go first:
+    their threads take a CPU from it the moment they wake, as a raft
+    timer's does.  Linux keeps the policy per thread and a new thread
+    takes its creator's, so every thread the test starts (agents,
+    workers, HTTP handlers) yields too; the thread ends with the test, so
+    no policy is ever raised again, and any user may lower their own.  An
+    exception of the test is raised again in the caller's thread."""
+
+    @functools.wraps(test)
+    def run(*args, **kwargs):
+        raised = []
+
+        def body():
+            os.sched_setscheduler(0, os.SCHED_IDLE, os.sched_param(0))
+            try:
+                test(*args, **kwargs)
+            except BaseException as exc:  # noqa: BLE001 — raised again below
+                raised.append(exc)
+
+        thread = threading.Thread(target=body, name=f"{test.__name__}-nice")
+        thread.start()
+        thread.join()
+        if raised:
+            raise raised[0]
+
+    return run
+
+
 def wait_until(pred, what, timeout=45.0, every=0.02):
     deadline = time.time() + timeout
     while not pred():
@@ -364,6 +397,21 @@ def wait_until(pred, what, timeout=45.0, every=0.02):
             raise AssertionError(
                 f"timed out after {timeout} s waiting for {what}")
         time.sleep(every)
+
+
+def elect(agent):
+    """Make ``agent`` the leader now (it campaigns until it wins) and wait
+    for its leader services."""
+    rep = agent.server.replicator
+
+    def won():
+        if not rep.is_leader:
+            rep._campaign()
+        return rep.is_leader
+
+    wait_until(won, f"{agent.config.name} elected", every=0.1)
+    wait_until(lambda: agent.server._leader, "leader services up")
+    return agent
 
 
 def settle_agent(agent, timeout=45.0):
